@@ -22,7 +22,23 @@ and the last line is never printed):
      request is held against the port's CPU pipeline;
   6. timings with CUDA events after a warm-up: the median, min and max over
      five windows of back-to-back calls, with TF32 off;
+  7. K2 vs plain: the fused ResNet-50 stem kernel against fused_stem_plain
+     on letterboxed (8, 640, 640) canvases, on (2, 72, 96) frames and on
+     all-0 and all-255 canvases, with the config's pixel normalization and
+     with ImageNet's (a nonzero mean, so the border zeroing shows);
+  8. R50 detector parity: RetinaFace-ResNet50 at 640 on seeded full-width
+     weights, batch 2, the fused-stem path on the card (K2) against the
+     port's CPU path (TF32 off);
+  9. R50 main path: FacePipeline with backbone="resnet50" on the card,
+     extract_batch on 2 requests of 8 frames plus extract_image on one; K2
+     must launch once per detect_batch and K1 once per detect call; the
+     first request is held against the port's CPU pipeline;
+ 10. DetectionServer: detect_batch and detect_stream over 3 batches of 8 on
+     the R50 detector, each image equal to detect_batch called directly;
+ 11. R50 timings as in phase 6: detect b8, extract_batch b8, K2 and the
+     plain stem per call at (8, 640, 640), detect_stream img/s;
 then a JSON line of the kernels, and {"ok": true, "device": ...} last.
+Every count a phase checks is set to 0 just before its path runs.
 
 Frames are composited from tests/fixtures/real_face_crop.npz (the face of
 tests/fixtures/real_face.jpg, box (172, 125, 372, 340), resized to 160x160)
@@ -35,6 +51,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIXTURES = os.path.join(HERE, "tests", "fixtures")
@@ -122,8 +139,11 @@ def main() -> int:
 
     from rs_face_detection_tpu_torch.kernels import build
     from rs_face_detection_tpu_torch.kernels import nms as knms
+    from rs_face_detection_tpu_torch.kernels import stem as kstem
     from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch
     from rs_face_detection_tpu_torch.ops.nms import nms_mask_plain
+    from rs_face_detection_tpu_torch.ops.stem import fold_stem_params, fused_stem, fused_stem_plain
     from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
     from rs_face_detection_tpu_torch.pipeline.face_pipeline import (
         FaceExtractionResult,
@@ -131,6 +151,7 @@ def main() -> int:
         FacePipelineConfig,
         FaceQualityClass,
     )
+    from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
 
     dev = torch.device("cuda")
     torch.manual_seed(SEED)
@@ -145,11 +166,18 @@ def main() -> int:
     print(f"phase 1 card: torch {torch.__version__}, CUDA {torch.version.cuda}, name and power limit:")
     print(smi)
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    build.load("nms")
-    ptxas = [ln.strip() for ln in build.build_logs.get("nms", "").splitlines() if "registers" in ln]
-    print(f"phase 2 build: csrc/nms.cu in {time.perf_counter() - t0:.2f} s; {'; '.join(ptxas)}")
+    sources = ("nms", "stem")
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        list(pool.map(build.build, sources))
+    report = []
+    for name in sources:
+        build.load(name)
+        log = build.build_logs.get(name, "").splitlines()
+        ptxas = [ln.split("ptxas info    : ")[-1].strip() for ln in log if "registers" in ln or "spill" in ln]
+        report.append(f"csrc/{name}.cu: {'; '.join(ptxas)}")
+    print(f"phase 2 build: csrc/nms.cu and csrc/stem.cu in {time.perf_counter() - t0:.2f} s; {' | '.join(report)}")
 
     # 3. K1 vs plain, bit for bit
     max_err = 0.0
@@ -283,20 +311,220 @@ def main() -> int:
     print(f"phase 6 detect b8: {fmt(det_ms)}/batch, {BATCH * 1000 / det_ms[0]:.1f} img/s {card}")
     print(f"phase 6 extract_batch b8: {fmt(ext_ms)}/batch, {BATCH * 1000 / ext_ms[0]:.1f} img/s {card}")
     print(f"phase 6 NMS (B=8, K=128) per call: K1 {fmt(k_ms)}, plain {fmt(p_ms)} {card}")
+
+    # 7. K2 vs plain (TF32 stays off).  Bound: 1e-5 of the output's
+    # magnitude -- 192 f32 products summed in another order.
+    r50_cfg = FacePipelineConfig(detection=dataclasses.replace(cfg.detection, backbone="resnet50"))
+    rcfg = r50_cfg.detection
+    r50_canvas, _ = letterbox_u8_batch(frames[:BATCH], width, height, dev)
+    wrng = np.random.default_rng(SEED + 7)
+    stem_params = [
+        torch.from_numpy(wrng.normal(size=(4, 4, 12, 64)).astype(np.float32) / np.float32(np.sqrt(192.0))),
+        torch.from_numpy(wrng.uniform(0.5, 1.5, 64).astype(np.float32)),
+        torch.from_numpy(wrng.normal(0, 0.1, 64).astype(np.float32)),
+        torch.from_numpy(wrng.normal(0, 0.1, 64).astype(np.float32)),
+        torch.from_numpy(wrng.uniform(0.5, 1.5, 64).astype(np.float32)),
+    ]
+    norms = {
+        "config": (rcfg.pixel_means, rcfg.pixel_stds, rcfg.pixel_scale),
+        "imagenet": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225), 255.0),
+    }
+    k2_cases = {
+        "letterboxed (8, 640, 640)": r50_canvas,
+        "(2, 72, 96)": torch.from_numpy(wrng.integers(0, 256, (2, 72, 96, 3), dtype=np.uint8)).to(dev),
+        "all-0 (1, 640, 640)": torch.zeros((1, height, width, 3), dtype=torch.uint8, device=dev),
+        "all-255 (1, 640, 640)": torch.full((1, height, width, 3), 255, dtype=torch.uint8, device=dev),
+    }
+    k2_err, k2_lines = 0.0, []
+    for norm_name, (means, stds, pscale) in norms.items():
+        consts = [c.to(dev) for c in fold_stem_params(*stem_params, means, stds, pscale)]
+        for case, imgs in k2_cases.items():
+            got = kstem.fused_stem_cuda(imgs, *consts)
+            want = fused_stem_plain(imgs, *consts)
+            torch.cuda.synchronize()
+            check(got.shape == want.shape, f"K2 shape {tuple(got.shape)} != {tuple(want.shape)}")
+            check(bool(torch.isfinite(got).all()), f"K2 not finite on {case}")
+            err = float((got - want).abs().max())
+            bound = 1e-5 * max(1.0, float(want.abs().max()))
+            check(err <= bound, f"K2 != plain on {case} ({norm_name}): {err} > {bound}")
+            k2_err = max(k2_err, err)
+            k2_lines.append(f"{case} {norm_name} {err:.3g}")
+    k2_consts = consts  # ImageNet normalization: the timing input below
+    print(f"phase 7 K2 vs plain (max abs err <= 1e-5 x max|plain|): {'; '.join(k2_lines)}")
+
+    # 8. R50 detector parity, GPU (K2 stem) vs CPU (plain stem), batch 2
+    r50_family = "retinaface_resnet50"
+    r50_sd = weights.init_state(r50_family, SEED)
+    r50_gpu = RetinaFaceDetection(rcfg, weights.load_model(r50_family, r50_sd), device=dev)
+    r50_cpu = RetinaFaceDetection(rcfg, weights.load_model(r50_family, r50_sd))
+    with torch.no_grad():
+        kstem.launches = 0
+        maps_gpu = r50_gpu.model.forward_pooled(fused_stem(r50_canvas[:2], *r50_gpu.stem_consts))
+        torch.cuda.synchronize()
+        check(kstem.launches == 1, "the R50 detector did not go through K2")
+        maps_cpu = r50_cpu.model.forward_pooled(fused_stem(r50_canvas[:2].cpu(), *r50_cpu.stem_consts))
+    # Bounds: box and landmark maps within 5e-5 of their magnitude (f32 sums
+    # in other orders through ~60 convolutions); scores within 1e-3, since on
+    # seeded weights the logits behind them are O(100) and a probability
+    # moves by up to a quarter of its logit's error.
+    r50_err = {"score": 0.0, "bbox": 0.0, "landmark": 0.0}
+    r50_mag = dict(r50_err)
+    for stride, maps in maps_cpu.items():
+        for key, ref in maps.items():
+            got = maps_gpu[stride][key].cpu()
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all()), f"bad R50 map {stride}/{key}")
+            r50_err[key] = max(r50_err[key], float((got - ref).abs().max()))
+            r50_mag[key] = max(r50_mag[key], float(ref.abs().max()))
+    r50_rel = {k: r50_err[k] / max(1.0, r50_mag[k]) for k in ("bbox", "landmark")}
+    check(r50_err["score"] <= 1e-3, f"R50 GPU vs CPU scores: {r50_err['score']} > 1e-3")
+    check(max(r50_rel.values()) <= 5e-5, f"R50 GPU vs CPU maps: {r50_rel} of the magnitude > 5e-5")
+    print(
+        f"phase 8 R50 detector parity (TF32 off): 2 frames at 640, max abs err score "
+        f"{r50_err['score']:.3g} (<= 1e-3), bbox {r50_err['bbox']:.3g} of max {r50_mag['bbox']:.4g}, "
+        f"landmark {r50_err['landmark']:.3g} of max {r50_mag['landmark']:.4g} (<= 5e-5 of the magnitude)"
+    )
+
+    # 9. the R50 main path
+    def r50_models():
+        return {
+            rcfg.model_name: weights.load_model(r50_family, r50_sd),
+            cfg.quality.model_name: weights.load_model("resnet18_classifier", q_sd),
+            cfg.identification.model_name: weights.load_model(cfg.identification.backbone, e_sd),
+        }
+
+    r50_pipe = FacePipeline(r50_cfg, models=r50_models(), device="cuda")
+    r50_pipe.extract_batch(frames[:BATCH])  # warm-up, before the counted run
+    torch.cuda.synchronize()
+    knms.launches = 0
+    kstem.launches = 0
+    r50_requests = [frames[i * BATCH : (i + 1) * BATCH] for i in range(2)]
+    r50_results = [r50_pipe.extract_batch(r) for r in r50_requests]
+    r50_single = r50_pipe.extract_image(frames[2 * BATCH])
+    torch.cuda.synchronize()
+    r50_nms_launches, r50_stem_launches = knms.launches, kstem.launches
+    check(r50_stem_launches == 2, f"K2 launched {r50_stem_launches} times for 2 detect_batch calls")
+    check(r50_nms_launches == 3, f"K1 launched {r50_nms_launches} times for 3 detect calls")
+    r50_flat = [r for req in r50_results for r in req] + [r50_single]
+    r50_selected = 0
+    for r in r50_flat:
+        check(isinstance(r, FaceExtractionResult) and isinstance(r.face_count, int), "bad R50 result")
+        if r.selected_face_box is None:
+            check(r.facial_feature is None, "R50: feature without a selected face")
+            continue
+        r50_selected += 1
+        feat = r.facial_feature
+        check(feat.shape == (512,) and np.isfinite(feat).all(), "R50: embedding not a finite (512,)")
+        check(abs(float(np.linalg.norm(feat)) - 1.0) <= 1e-4, "R50: embedding norm not 1")
+        check(isinstance(r.face_quality, FaceQualityClass), "R50: quality not a FaceQualityClass")
+    if r50_selected == 0:  # still run warp + quality + embed on the card
+        from rs_face_detection_tpu_torch.ops.image import warp_affine
+
+        m = np.concatenate([np.eye(2, dtype=np.float32), np.zeros((2, 1), np.float32)], 1)
+        faces = warp_affine(r50_canvas[:1].float(), torch.from_numpy(m)[None].to(dev), 112, 112)
+        _, emb = r50_pipe.heads(faces)
+        check(bool(torch.isfinite(emb).all()), "R50: tail on template landmarks not finite")
+    t_cpu = time.perf_counter()
+    r50_cpu_pipe = FacePipeline(r50_cfg, models=r50_models(), device="cpu")
+    r50_box, r50_cos = 0.0, 1.0
+    for g, c in zip(r50_results[0], r50_cpu_pipe.extract_batch(r50_requests[0])):
+        check(g.face_count == c.face_count, f"R50 face count GPU {g.face_count} vs CPU {c.face_count}")
+        check((g.selected_face_box is None) == (c.selected_face_box is None), "R50 selection differs")
+        if c.selected_face_box is not None:
+            r50_box = max(r50_box, float(np.abs(g.selected_face_box - c.selected_face_box).max()))
+            r50_cos = min(r50_cos, float(np.dot(g.facial_feature, c.facial_feature)))
+            check(g.face_quality == c.face_quality, "R50 quality class differs")
+    check(r50_box <= 1e-2 and r50_cos >= 0.9999, f"R50 GPU vs CPU: box {r50_box}, cos {r50_cos}")
+    print(
+        f"phase 9 R50 main path: 2 x extract_batch(8) + extract_image(1) at 640x480, seeded weights; "
+        f"faces found {sum(r.face_count for r in r50_flat)}, selected {r50_selected}/17; "
+        f"K2 launches {r50_stem_launches} for 2 detect_batch calls, K1 launches {r50_nms_launches} "
+        f"for 3 detect calls; request 1 vs CPU pipeline ({time.perf_counter() - t_cpu:.1f} s on the "
+        f"CPU): box max err {r50_box:.3g} px, min embedding cosine {r50_cos:.6f}"
+    )
+
+    # 10. DetectionServer on the R50 detector, against detect_batch called directly
+    stream_frames = frames[: 3 * BATCH]
+    direct = []
+    for i in range(0, len(stream_frames), BATCH):
+        canvases, det_scales = letterbox_u8_batch(stream_frames[i : i + BATCH], width, height, dev)
+        out = r50_gpu.detect_batch(canvases, torch.tensor(det_scales))
+        det_np, kps_np, cnt = (t.cpu().numpy() for t in (out.det, out.kps, out.count))
+        direct += [(det_np[j, : cnt[j]], kps_np[j, : cnt[j]]) for j in range(len(det_scales))]
+    with DetectionServer(r50_gpu, batch_size=BATCH) as server:
+        served = [r for i in range(0, len(stream_frames), BATCH) for r in server.detect_batch(stream_frames[i : i + BATCH])]
+        streamed = [r for b in server.detect_stream(iter(stream_frames)) for r in b]
+        server_err = 0.0
+        for name, results in (("detect_batch", served), ("detect_stream", streamed)):
+            check(len(results) == len(direct), f"{name} returned {len(results)} results")
+            for (gd, gk), (wd, wk) in zip(results, direct):
+                check(gd.shape == wd.shape, f"{name}: {len(gd)} faces vs {len(wd)} from detect_batch")
+                if len(wd):
+                    server_err = max(server_err, float(np.abs(gd - wd).max()), float(np.abs(gk - wk).max()))
+        check(server_err <= 1e-3, f"DetectionServer vs detect_batch: {server_err} > 1e-3")
+        print(
+            f"phase 10 DetectionServer (R50, batch 8): detect_batch and detect_stream over 3 batches "
+            f"equal detect_batch per image, max abs err {server_err:.3g} "
+            f"({sum(len(d) for d, _ in direct)} faces)"
+        )
+
+        # 11. R50 timings (TF32 off)
+        r50_scales = torch.ones(BATCH)
+        for _ in range(2):
+            r50_gpu.detect_batch(r50_canvas, r50_scales)
+        r50_det_ms = cuda_ms(lambda: r50_gpu.detect_batch(r50_canvas, r50_scales), 5)
+        r50_ext_ms = cuda_ms(lambda: r50_pipe.extract_batch(r50_requests[0]), 3)
+        k2_ms = cuda_ms(lambda: kstem.fused_stem_cuda(r50_canvas, *k2_consts), 20)
+        stem_plain_ms = cuda_ms(lambda: fused_stem_plain(r50_canvas, *k2_consts), 20)
+        k2_ms2 = cuda_ms(lambda: kstem.fused_stem_cuda(r50_canvas, *k2_consts), 20)
+        stream_s = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_out = sum(len(b) for b in server.detect_stream(iter(stream_frames)))
+            stream_s.append(time.perf_counter() - t0)
+        check(n_out == len(stream_frames), "detect_stream lost frames")
+    rate = sorted(len(stream_frames) / t for t in stream_s)
+    print(f"phase 11 R50 detect b8: {fmt(r50_det_ms)}/batch, {BATCH * 1000 / r50_det_ms[0]:.1f} img/s {card}")
+    print(
+        f"phase 11 R50 extract_batch b8: {fmt(r50_ext_ms)}/batch, "
+        f"{BATCH * 1000 / r50_ext_ms[0]:.1f} img/s {card}"
+    )
+    print(
+        f"phase 11 stem (8, 640, 640) per call: K2 {fmt(k2_ms)}, plain {fmt(stem_plain_ms)}, "
+        f"K2 again {fmt(k2_ms2)} {card}"
+    )
+    print(
+        f"phase 11 DetectionServer.detect_stream R50 b8, 3 batches from host frames: "
+        f"{rate[2]:.1f} img/s (min {rate[0]:.1f}, max {rate[-1]:.1f}) {card}"
+    )
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")
 
-    print(json.dumps({"kernels": [{
-        "name": "nms_mask",
-        "route": "cuda",
-        "source": "rs_face_detection_tpu_torch/csrc/nms.cu",
-        "replaces": "rs_face_detection_tpu/ops/nms_pallas.py:110",
-        "launches": main_launches,
-        "max_abs_err": max_err,
-        "ms": k_ms[0],
-        "plain_ms": p_ms[0],
-    }]}))
+    print(json.dumps({"kernels": [
+        {
+            "name": "nms_mask",
+            "route": "cuda",
+            "source": "rs_face_detection_tpu_torch/csrc/nms.cu",
+            "replaces": "rs_face_detection_tpu/ops/nms_pallas.py:110",
+            "launches": main_launches + r50_nms_launches,
+            "launches_by_path": {"mobilenet025": main_launches, "resnet50": r50_nms_launches},
+            "max_abs_err": max_err,
+            "ms": k_ms[0],
+            "plain_ms": p_ms[0],
+        },
+        {
+            "name": "fused_stem",
+            "route": "cuda",
+            "source": "rs_face_detection_tpu_torch/csrc/stem.cu",
+            "replaces": "rs_face_detection_tpu/ops/stem_pallas.py:214",
+            "launches": r50_stem_launches,
+            "launches_by_path": {"mobilenet025": 0, "resnet50": r50_stem_launches},
+            "max_abs_err": k2_err,
+            "ms": k2_ms[0],
+            "plain_ms": stem_plain_ms[0],
+        },
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

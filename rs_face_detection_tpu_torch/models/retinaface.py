@@ -1,9 +1,11 @@
 """RetinaFace detector network: backbone + FPN + SSH + multi-task heads.
 
-Counterpart of rs_face_detection_tpu/models/retinaface.py, MobileNet-0.25
-only, in the biubug6 key layout (``body``, ``fpn``, ``ssh1..3``,
-``ClassHead/BboxHead/LandmarkHead.{i}.conv1x1``).  Input (B, 3, H, W)
-normalized RGB.  The output is the JAX model's contract: {stride:
+Counterpart of rs_face_detection_tpu/models/retinaface.py for the
+MobileNet-0.25 and ResNet-50 backbones, in the biubug6 key layout
+(``body``, ``fpn``, ``ssh1..3``, ``ClassHead/BboxHead/LandmarkHead.{i}.conv1x1``).
+Input (B, 3, H, W) normalized RGB; for the ResNet-50, whose stem runs on the
+2x2 space-to-depth layout, ``forward_pooled`` starts instead from the pooled
+stem output that the fused stem kernel computes from uint8 frames.  The output is the JAX model's contract: {stride:
 {"score": (B, H, W, A), "bbox": (B, H, W, A*4), "landmark": (B, H, W, A*10)}}
 for strides 8, 16, 32.  Each head's NCHW output is permuted to NHWC before
 any reshape, so rows flatten in (h, w, a) order, the anchor table's order.
@@ -18,9 +20,13 @@ import torch.nn as nn
 
 from .layers import FPN, SSH
 from .mobilenet import NEGATIVE_SLOPE, MobileNetV1_025
+from .resnet import ResNet50
 
 #: per-backbone (backbone channels C3..C5, fpn/ssh channels, leaky slope)
-_BACKBONES = {"mobilenet025": ((64, 128, 256), 64, NEGATIVE_SLOPE)}
+_BACKBONES = {
+    "mobilenet025": ((64, 128, 256), 64, NEGATIVE_SLOPE),
+    "resnet50": ((512, 1024, 2048), 256, 0.0),
+}
 
 
 class _Head(nn.Module):
@@ -44,7 +50,7 @@ class RetinaFace(nn.Module):
         in_channels, channels, slope = _BACKBONES[backbone]
         self.backbone = backbone
         self.num_anchors = num_anchors
-        self.body = MobileNetV1_025()
+        self.body = ResNet50() if backbone == "resnet50" else MobileNetV1_025()
         self.fpn = FPN(in_channels, channels, slope)
         self.ssh1 = SSH(channels, channels, slope)
         self.ssh2 = SSH(channels, channels, slope)
@@ -54,8 +60,23 @@ class RetinaFace(nn.Module):
         self.BboxHead = nn.ModuleList([_Head(channels, a * 4) for _ in range(3)])
         self.LandmarkHead = nn.ModuleList([_Head(channels, a * 10) for _ in range(3)])
 
+    def uses_s2d_stem(self) -> bool:
+        """Whether the backbone's stem runs on the 2x2 space-to-depth layout
+        (the ResNet-50), so that ``forward_pooled`` and the fused stem apply."""
+        return self.backbone == "resnet50"
+
     def forward(self, x: torch.Tensor) -> Dict[int, Dict[str, torch.Tensor]]:
-        pyramid = self.fpn(self.body(x))
+        return self._neck_and_heads(self.body(x))
+
+    def forward_pooled(self, pooled: torch.Tensor) -> Dict[int, Dict[str, torch.Tensor]]:
+        """The network from the pooled (B, 64, H/4, W/4) stem output of the
+        s2d backbone: the flax model's ``stem_precomputed=True``."""
+        if not self.uses_s2d_stem():
+            raise ValueError(f"backbone {self.backbone!r} has no s2d stem to start after")
+        return self._neck_and_heads(self.body.from_pooled(pooled))
+
+    def _neck_and_heads(self, feats) -> Dict[int, Dict[str, torch.Tensor]]:
+        pyramid = self.fpn(feats)
         contexts = [ssh(p) for ssh, p in zip((self.ssh1, self.ssh2, self.ssh3), pyramid)]
         out: Dict[int, Dict[str, torch.Tensor]] = {}
         for i, (stride, feat) in enumerate(zip((8, 16, 32), contexts)):

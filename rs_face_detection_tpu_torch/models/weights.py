@@ -17,6 +17,11 @@ whose entries are copied here so that no JAX module is imported:
 ``init_state`` gives a full-width state_dict from ``numpy.random.default_rng``
 with the distributions of flax's default initializers (the bits differ), for
 machines that hold no checkpoint and no JAX.
+
+``state_dict_from_biubug6`` loads a public biubug6 ``Resnet50_Final.pth``
+state_dict into the port's RetinaFace-R50: the keys are already the port's,
+and the 7x7/s2 stem converts exactly to the s2d form
+(models/resnet.py::stem_to_s2d).
 """
 
 from __future__ import annotations
@@ -30,10 +35,19 @@ import torch.nn as nn
 
 from .arcface import FC_GRID, STAGES, IResNet
 from .classifiers import ResNet18Classifier
+from .resnet import STAGES as RESNET50_STAGES
+from .resnet import stem_to_s2d
 from .retinaface import RetinaFace
 
 #: The model families the bridge and the seeded init know.
-FAMILIES = ("retinaface_mobilenet025", *STAGES, "resnet18_classifier")
+FAMILIES = (
+    "retinaface_mobilenet025",
+    "retinaface_resnet50",
+    *STAGES,
+    "resnet18_classifier",
+)
+#: RetinaFace families and their backbone.
+RETINAFACE = {"retinaface_mobilenet025": "mobilenet025", "retinaface_resnet50": "resnet50"}
 
 
 def _conv_bn(m: Dict, flax_mod: str, torch_mod: str) -> None:
@@ -58,6 +72,33 @@ def retinaface_mobilenet025_map() -> Dict[str, Tuple]:
         _conv_dw(m, f"body/ds{6 + i}", f"body.stage2.{i}")
     for i in range(2):
         _conv_dw(m, f"body/ds{12 + i}", f"body.stage3.{i}")
+    _neck_and_heads(m)
+    return m
+
+
+def retinaface_resnet50_map() -> Dict[str, Tuple]:
+    """{flax path: (torch key, kind)}; the inverse of
+    checkpoint_maps.retinaface_resnet50_map with the s2d stem, whose
+    (4, 4, 12, 64) kernel maps to body.conv1 as it is (HWIO -> OIHW)."""
+    m: Dict[str, Tuple] = {
+        "params/body/stem/Conv_0/kernel": ("body.conv1", "conv"),
+        "params/body/stem/BatchNorm_0": ("body.bn1", "bn"),
+    }
+    for s, blocks in enumerate(RESNET50_STAGES):
+        for b in range(blocks):
+            t, f = f"body.layer{s + 1}.{b}", f"params/body/s{s}b{b}"
+            for c in (1, 2, 3):
+                m[f"{f}/c{c}/Conv_0/kernel"] = (f"{t}.conv{c}", "conv")
+                m[f"{f}/c{c}/BatchNorm_0"] = (f"{t}.bn{c}", "bn")
+            if b == 0:
+                m[f"{f}/proj/Conv_0/kernel"] = (f"{t}.downsample.0", "conv")
+                m[f"{f}/proj/BatchNorm_0"] = (f"{t}.downsample.1", "bn")
+    _neck_and_heads(m)
+    return m
+
+
+def _neck_and_heads(m: Dict) -> None:
+    """FPN, SSH and heads: the same keys for both backbones."""
     for i, name in enumerate(("output1", "output2", "output3")):
         _conv_bn(m, f"fpn/lateral{i}", f"fpn.{name}")
     _conv_bn(m, "fpn/merge0", "fpn.merge1")
@@ -73,7 +114,6 @@ def retinaface_mobilenet025_map() -> Dict[str, Tuple]:
         m[f"params/cls{i}"] = (f"ClassHead.{i}.conv1x1", "conv_bias")
         m[f"params/box{i}"] = (f"BboxHead.{i}.conv1x1", "conv_bias")
         m[f"params/ldm{i}"] = (f"LandmarkHead.{i}.conv1x1", "conv_bias")
-    return m
 
 
 def iresnet_map(depth: str = "iresnet50") -> Dict[str, Tuple]:
@@ -124,6 +164,8 @@ def resnet18_classifier_map() -> Dict[str, Tuple]:
 def mapping_for(family: str) -> Dict[str, Tuple]:
     if family == "retinaface_mobilenet025":
         return retinaface_mobilenet025_map()
+    if family == "retinaface_resnet50":
+        return retinaface_resnet50_map()
     if family in STAGES:
         return iresnet_map(family)
     if family == "resnet18_classifier":
@@ -133,8 +175,8 @@ def mapping_for(family: str) -> Dict[str, Tuple]:
 
 def build_model(family: str, num_outputs: int = 4) -> nn.Module:
     """The port's module for a family, in eval mode, on the CPU."""
-    if family == "retinaface_mobilenet025":
-        model = RetinaFace("mobilenet025")
+    if family in RETINAFACE:
+        model = RetinaFace(RETINAFACE[family])
     elif family in STAGES:
         model = IResNet(family)
     elif family == "resnet18_classifier":
@@ -253,3 +295,33 @@ def load_model(family: str, state_dict: Dict[str, torch.Tensor]) -> nn.Module:
     model = build_model(family, num_outputs)
     model.load_state_dict(state_dict, strict=True)
     return model
+
+
+def state_dict_from_biubug6(family: str, state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The port's state_dict from a biubug6 Pytorch_Retinaface checkpoint
+    (``Resnet50_Final.pth`` for ``retinaface_resnet50``).
+
+    Keys may carry DataParallel's ``module.`` prefix.  The R50's 7x7/s2
+    ``body.conv1`` (64, 3, 7, 7) becomes the s2d (64, 12, 4, 4) kernel; every
+    other tensor keeps its key.  Raises on a missing or an extra key.
+    """
+    if family != "retinaface_resnet50":
+        raise ValueError(f"state_dict_from_biubug6 loads retinaface_resnet50, not {family!r}")
+    sd = {
+        (k[len("module."):] if k.startswith("module.") else k): torch.as_tensor(np.asarray(v))
+        for k, v in state_dict.items()
+    }
+    stem = sd["body.conv1.weight"].numpy()
+    if stem.shape[1:] == (3, 7, 7):
+        hwio = stem_to_s2d(stem.transpose(2, 3, 1, 0))
+        sd["body.conv1.weight"] = _tensor(hwio.transpose(3, 2, 0, 1))
+    want = build_model(family).state_dict()
+    missing = sorted(set(want) - set(sd))
+    extra = sorted(set(sd) - set(want))
+    if missing or extra:
+        raise ValueError(f"{family}: missing keys {missing[:8]}, extra keys {extra[:8]}")
+    for k, v in want.items():
+        if tuple(sd[k].shape) != tuple(v.shape):
+            raise ValueError(f"{family}: {k} has shape {tuple(sd[k].shape)}, want {tuple(v.shape)}")
+        sd[k] = sd[k].to(v.dtype)
+    return sd

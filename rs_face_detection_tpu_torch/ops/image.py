@@ -7,8 +7,9 @@ public functions compare like with like; only the networks take NCHW.
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,6 +57,141 @@ def letterbox(img_u8: torch.Tensor, dst_w: int, dst_h: int) -> Tuple[torch.Tenso
     padded = torch.zeros((dst_h, dst_w, 3), dtype=torch.float32, device=img_u8.device)
     padded[:new_h, :new_w] = resized
     return padded, det_scale
+
+
+#: OpenCV's fixed-point resize: coefficients carry 11 fractional bits.
+_COEF_BITS = 11
+
+
+def _linear_taps(
+    src: int, dst: int, columns: bool
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """OpenCV INTER_LINEAR taps of one axis: (i0, i1, c0, c1), source
+    indices and 11-bit weights of each destination index.
+
+    The arithmetic is cv::resize's for uint8: scale = 1 / (dst / src) in
+    double, half-pixel source coordinate rounded to float, floor, the
+    weights ``1 - f`` and ``f`` times 2048 rounded half to even.  Both axes
+    clamp the source index into [0, src - 1]; OpenCV also resets the
+    weights to (2048, 0) there for columns, but keeps them for rows.
+    """
+    scale = 1.0 / (dst / src)
+    fx = ((np.arange(dst, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
+    sx = np.floor(fx)
+    fx = (fx - sx).astype(np.float32)
+    sx = sx.astype(np.int64)
+    if columns:
+        fx[(sx < 0) | (sx >= src - 1)] = 0.0
+    sx0 = np.clip(sx, 0, src - 1)
+    sx1 = np.clip(sx + 1, 0, src - 1)
+    one = np.float32(1 << _COEF_BITS)
+    c0 = np.round((np.float32(1.0) - fx) * one).astype(np.int32)
+    c1 = np.round(fx * one).astype(np.int32)
+    return sx0, sx1, c0, c1
+
+
+def resize_u8_linear(img_u8: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """``cv2.resize(img, (out_w, out_h), interpolation=cv2.INTER_LINEAR)``
+    on an (H, W, C) uint8 tensor, bit for bit, in integer ops on its device.
+
+    A horizontal pass into int32, then OpenCV's vertical pass for uint8: each row is shifted right by 4, multiplied by
+    its weight and shifted right by 16, the two are added and rounded with
+    ``(v + 2) >> 2``.  An exact 2x downscale, which OpenCV takes as a 2x2
+    area mean ``(sum + 2) >> 2``, comes out of the same arithmetic (weights
+    1024, 1024).  tests/test_torch_letterbox.py holds it equal to cv2.
+    At the input's own size it returns the input itself.
+    """
+    src_h, src_w = img_u8.shape[0], img_u8.shape[1]
+    if (src_h, src_w) == (out_h, out_w):
+        return img_u8
+    dev = img_u8.device
+    x0, x1, a0, a1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(src_w, out_w, True))
+    y0, y1, b0, b1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(src_h, out_h, False))
+
+    def horizontal(rows: torch.Tensor) -> torch.Tensor:  # (out_h, W, C) -> (out_h, out_w, C)
+        src = rows.to(torch.int32)
+        return src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
+
+    top = ((horizontal(img_u8[y0]) >> 4) * b0[:, None, None]) >> 16
+    bot = ((horizontal(img_u8[y1]) >> 4) * b1[:, None, None]) >> 16
+    return ((top + bot + 2) >> 2).clamp(0, 255).to(torch.uint8)
+
+
+def letterbox_u8_batch(
+    images: Sequence, dst_w: int, dst_h: int, device: torch.device
+) -> Tuple[torch.Tensor, List[float]]:
+    """Letterbox (H, W, 3) uint8 images (numpy arrays or tensors) into one
+    (n, dst_h, dst_w, 3) uint8 batch on `device`, each padded bottom/right
+    with zeros; returns it with the n det_scales.
+
+    Counterpart of rs_face_detection_tpu/parallel/serving.py::letterbox_host
+    (OpenCV INTER_LINEAR on uint8) over a batch, on the device: every canvas
+    is the same, bit for bit, so the batched paths see what the JAX ones
+    see.  Each resized frame is written straight into its slot of the batch.
+    A host frame bound for a CUDA device is uploaded from pinned memory
+    without blocking, on the current stream (the caching host allocator
+    keeps the pinned copy until the upload is done).
+    """
+    canvases = torch.zeros((len(images), dst_h, dst_w, 3), dtype=torch.uint8, device=device)
+    scales = []
+    for i, image in enumerate(images):
+        frame = torch.from_numpy(np.ascontiguousarray(image)) if isinstance(image, np.ndarray) else image
+        if device.type == "cuda" and frame.device.type == "cpu":
+            frame = frame.pin_memory()
+        frame = frame.to(device, non_blocking=True)
+        new_w, new_h, det_scale = letterbox_geometry(frame.shape[0], frame.shape[1], dst_w, dst_h)
+        canvases[i, :new_h, :new_w] = resize_u8_linear(frame, new_h, new_w)
+        scales.append(det_scale)
+    return canvases, scales
+
+
+def letterbox_u8(img_u8: torch.Tensor, dst_w: int, dst_h: int) -> Tuple[torch.Tensor, float]:
+    """Letterbox one (H, W, 3) uint8 image on its device: letterbox_u8_batch
+    of one, as a (dst_h, dst_w, 3) canvas and its det_scale."""
+    canvases, scales = letterbox_u8_batch([img_u8], dst_w, dst_h, img_u8.device)
+    return canvases[0], scales[0]
+
+
+def space_to_depth(x: torch.Tensor, block: int = 2) -> torch.Tensor:
+    """(B, H, W, C) -> (B, H/b, W/b, b*b*C), channel k = (bi*b + bj)*C + c.
+
+    Counterpart of rs_face_detection_tpu/models/layers.py::space_to_depth.
+    """
+    b, h, w, c = x.shape
+    if h % block or w % block:
+        raise ValueError(f"space_to_depth needs H, W divisible by {block}, got {tuple(x.shape)}")
+    x = x.reshape(b, h // block, block, w // block, block, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // block, w // block, block * block * c)
+
+
+def s2d_layout(imgs_bgr_u8: torch.Tensor) -> torch.Tensor:
+    """2x2 space-to-depth of (B, H, W, 3) uint8 frames on their device:
+    (B, H/2, W/2, 12), channel k = (bi*2 + bj)*3 + c with c in BGR order.
+    Counterpart of rs_face_detection_tpu/ops/image.py::s2d_layout_host."""
+    if imgs_bgr_u8.dim() != 4 or imgs_bgr_u8.shape[-1] != 3:
+        raise ValueError(f"s2d_layout needs (B, H, W, 3), got {tuple(imgs_bgr_u8.shape)}")
+    return space_to_depth(imgs_bgr_u8, 2).contiguous()
+
+
+#: s2d channel k = block*3 + c: reversing c within each block is BGR <-> RGB.
+S2D_FLIP = (2, 1, 0, 5, 4, 3, 8, 7, 6, 11, 10, 9)
+
+
+def s2d_stem_input(imgs_bgr_u8: torch.Tensor, mean, scale) -> torch.Tensor:
+    """BGR->RGB + 2x2 space-to-depth + normalize on (B, H, W, 3) uint8
+    frames: the (B, H/2, W/2, 12) float32 RGB stem input of the s2d
+    ResNet-50, with per-channel RGB mean and scale (three floats each).
+
+    Counterpart of rs_face_detection_tpu/ops/image.py::s2d_stem_input on
+    its default layout and with no post-division (the port has no caller
+    of either option), in the same f32 op order: ``(float(px) - mean) *
+    scale``.  ops/stem.py::fused_stem_plain computes these values in the
+    frame's BGR channel order, the order of the folded stem constants.
+    """
+    x = s2d_layout(imgs_bgr_u8)[..., list(S2D_FLIP)]
+    mean12 = torch.tensor(mean, dtype=torch.float32, device=x.device).tile(4)
+    scale12 = torch.tensor(scale, dtype=torch.float32, device=x.device).tile(4)
+    return (x.float() - mean12) * scale12
 
 
 def bgr_to_rgb(img: torch.Tensor) -> torch.Tensor:

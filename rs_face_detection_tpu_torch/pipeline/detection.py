@@ -1,8 +1,9 @@
 """RetinaFace detection: pixels to padded boxes on one device.
 
 Counterpart of rs_face_detection_tpu/pipeline/detection.py, natural layout
-only (the ``stem="xla"`` graph).  Letterbox, BGR->RGB, normalize, the
-network, then the detection tail, batched over images:
+only (the ``stem="xla"`` graph), plus the fused stem of the s2d ResNet-50
+(``stem="pallas"``).  Letterbox, BGR->RGB, normalize, the network, then the
+detection tail, batched over images:
 
   1. keep scores >= confidence_threshold and take a stable top-k
      (``torch.sort(stable=True)`` then a slice: ``jax.lax.top_k`` keeps
@@ -11,6 +12,14 @@ network, then the detection tail, batched over images:
   3. greedy NMS -- one CUDA kernel launch for the whole batch on the card;
   4. compact the kept rows into max_detections padded rows plus a count;
   5. descale by the letterbox scale.
+
+For the ResNet-50 the batched path (``detect_batch``, ``candidates``) runs
+the whole stem -- normalize, s2d conv, BatchNorm, ReLU, max-pool -- as one
+fused pass over the uint8 canvases (ops/stem.py; the CUDA kernel K2 on the
+card), then the network from stage 1: the JAX detector's
+``make_batched_fn(pre_s2d=True, stem="pallas")``.  The single-image path
+keeps the JAX package's semantics: its float letterboxed frame goes through
+the module's own stem.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from ..ops.anchors import full_anchor_table
 from ..ops.box_decode import bbox_pred, clip_boxes, landmark_pred
 from ..ops.image import bgr_to_rgb, letterbox, normalize
 from ..ops.nms import nms_mask
+from ..ops.stem import fold_stem_params, fused_stem
 from ..utils.device import DeviceLike, resolve_device, to_device
 
 
@@ -137,6 +147,24 @@ class RetinaFaceDetection:
                 f"anchor table has {level_info[0][3]} anchors/cell but the model "
                 f"head predicts {self.model.num_anchors}"
             )
+        # The s2d models' batched path runs the fused stem (K2 on the card);
+        # its constants are folded once, from the weights the detector holds.
+        # It takes even frame sizes only, and raises on odd ones as JAX's
+        # stem="pallas" does; the single-image path takes any size.
+        self.stem_consts = None
+        if self.model.uses_s2d_stem():
+            body = self.model.body
+            self.stem_consts = fold_stem_params(
+                body.conv1.weight.detach().permute(2, 3, 1, 0),  # OIHW -> HWIO
+                body.bn1.weight.detach(),
+                body.bn1.bias.detach(),
+                body.bn1.running_mean,
+                body.bn1.running_var,
+                self.cfg.pixel_means,
+                self.cfg.pixel_stds,
+                self.cfg.pixel_scale,
+                body.bn1.eps,
+            )
 
     def forward(self, images: torch.Tensor) -> Dict[int, Dict[str, torch.Tensor]]:
         """The network on (B, H, W, 3) float BGR pixels in [0, 255]."""
@@ -150,15 +178,23 @@ class RetinaFaceDetection:
         return self.model(x.permute(0, 3, 1, 2).contiguous())
 
     def candidates(self, imgs_u8: torch.Tensor) -> Candidates:
-        """Top-k decoded candidates of (B, H, W, 3) letterboxed uint8 frames."""
+        """Top-k decoded candidates of (B, H, W, 3) letterboxed uint8 frames
+        (H and W even for an s2d model)."""
         with torch.no_grad():
-            net_out = self.forward(imgs_u8.float())
+            if self.stem_consts is not None:
+                pooled = fused_stem(imgs_u8.contiguous(), *self.stem_consts)
+                net_out = self.model.forward_pooled(pooled)
+            else:
+                net_out = self.forward(imgs_u8.float())
             return select_candidates(net_out, self.anchors, self.level_info, self.cfg)
 
     def detect_batch(self, imgs_u8, det_scales) -> PaddedDetections:
         """Batched detect on letterboxed (B, H, W, 3) uint8 frames with (B,)
         letterbox scales: the contract of the JAX detector's
-        ``make_batched_fn(stem="xla")``.  Results stay on the device."""
+        ``make_batched_fn(stem="xla")``, and for the ResNet-50 of
+        ``make_batched_fn(pre_s2d=True, stem="pallas")`` on the same frames
+        (the fused stem reads the canvas as it is, so no s2d copy is made).
+        Results stay on the device."""
         imgs = to_device(imgs_u8, self.device)
         scales = to_device(det_scales, self.device).float()
         padded = nms_and_compact(self.candidates(imgs), self.cfg)
@@ -170,6 +206,9 @@ class RetinaFaceDetection:
         width, height = self.cfg.image_size
         img = to_device(image_bgr_u8, self.device)
         padded_img, det_scale = letterbox(img, width, height)
+        # The float letterbox is not rounded to uint8 here (the JAX
+        # single-image path does not round it either), so the fused stem,
+        # which reads uint8, does not apply: the module runs its own stem.
         with torch.no_grad():
             net_out = self.forward(padded_img[None])
             cand = select_candidates(net_out, self.anchors, self.level_info, self.cfg)

@@ -24,7 +24,7 @@ import torch.nn as nn
 from rs_face_detection_tpu.configs import FacePipelineConfig, FaceQualityClass
 
 from ..models.weights import init_state, load_model
-from ..ops.image import bgr_to_rgb, letterbox, normalize, resize_bilinear, warp_affine
+from ..ops.image import bgr_to_rgb, letterbox_u8_batch, normalize, resize_bilinear, warp_affine
 from ..utils.device import DeviceLike, resolve_device, to_device
 from ..utils.image_io import decode_image_bytes
 from .alignment import FaceAlignment
@@ -151,9 +151,10 @@ class FacePipeline:
     def extract_batch(self, payloads) -> List[FaceExtractionResult]:
         """extract() over a batch of images (bytes or BGR arrays).
 
-        Two device passes: one batched detect over letterboxed canvases, one
-        fused warp + quality + embed over every selected face.  Faces are
-        warped from the letterboxed canvas (the matrix rescaled by det_scale).
+        Two device passes: one batched detect over uint8 letterboxed
+        canvases, one fused warp + quality + embed over every selected face.
+        Faces are warped from the letterboxed canvas (the matrix rescaled by
+        det_scale).
         """
         n = len(payloads)
         if n == 0:
@@ -162,11 +163,10 @@ class FacePipeline:
         images = [
             decode_image_bytes(p) if isinstance(p, (bytes, bytearray)) else p for p in payloads
         ]
-        canvases = torch.empty((n, height, width, 3), dtype=torch.uint8, device=self.device)
-        scales = np.zeros(n, np.float32)
-        for i, image in enumerate(images):
-            padded, scales[i] = letterbox(to_device(image, self.device), width, height)
-            canvases[i] = padded.round().clamp(0, 255).to(torch.uint8)
+        # OpenCV's uint8 INTER_LINEAR letterbox, bit for bit: the JAX batch
+        # path letterboxes on the host with cv2.
+        canvases, det_scales = letterbox_u8_batch(images, width, height, self.device)
+        scales = np.asarray(det_scales, np.float32)
 
         out = self.face_detection.detect_batch(canvases, torch.from_numpy(scales))
         counts, all_det, all_kps = (t.cpu().numpy() for t in (out.count, out.det, out.kps))

@@ -1,0 +1,193 @@
+"""Batched detection serving on one device, with upload/compute overlap.
+
+Counterpart of rs_face_detection_tpu/parallel/serving.py::DetectionServer
+without the mesh: one detector on one device.  A batch of payloads (encoded
+bytes or (H, W, 3) uint8 BGR arrays) is decoded on a thread pool, uploaded,
+letterboxed on the device with OpenCV's uint8 INTER_LINEAR arithmetic
+(ops/image.py::letterbox_u8_batch, so the canvases equal the JAX server's), and
+detected in one ``detect_batch`` call.
+
+On a CUDA device the upload and the letterbox of a batch run on a side
+stream: frames go through pinned host buffers with non-blocking copies, and
+the compute stream waits on an event before it reads the canvases.  In
+``detect_stream`` a producer thread stages batch k+1 this way while the
+consumer's batch k computes -- the role of the JAX server's ``_stage``.
+
+The port has no statistics registry yet, so the server records none.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Iterable, Iterator, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.image import letterbox_u8_batch
+from ..pipeline.detection import PaddedDetections, RetinaFaceDetection
+from ..utils.image_io import decode_image_bytes
+
+Result = Tuple[np.ndarray, np.ndarray]
+
+
+class _Staged(NamedTuple):
+    """A batch on the device, ready for detect: letterboxed canvases, their
+    scales, and the event the compute stream waits on (None on the CPU)."""
+
+    canvases: torch.Tensor  # (n, H, W, 3) uint8
+    scales: torch.Tensor  # (n,) float32
+    ready: Optional[torch.cuda.Event]
+
+
+class DetectionServer:
+    """Batched detection on the detector's device.
+
+    detector: a ``RetinaFaceDetection`` (default: seeded weights on the CPU);
+    batch_size: most payloads per ``detect_batch`` call and per streamed
+    batch; decode_workers: threads that decode encoded payloads.
+    """
+
+    def __init__(
+        self,
+        detector: Optional[RetinaFaceDetection] = None,
+        batch_size: int = 8,
+        decode_workers: int = 4,
+    ) -> None:
+        if batch_size < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self.detector = detector or RetinaFaceDetection()
+        self.device = self.detector.device
+        self.batch_size = batch_size
+        self._pool = ThreadPoolExecutor(max_workers=decode_workers)
+        self._copy_stream = (
+            torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
+        )
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def close(self) -> None:
+        """Release the decode threads (idempotent); the server can no longer
+        serve afterwards."""
+        self._pool.shutdown(wait=False)
+
+    def __enter__(self) -> "DetectionServer":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- staging -------------------------------------------------------------
+
+    @staticmethod
+    def _decode(payload) -> np.ndarray:
+        if isinstance(payload, (bytes, bytearray)):
+            return decode_image_bytes(payload)
+        return np.ascontiguousarray(payload)
+
+    def _stage(self, payloads: Sequence) -> _Staged:
+        """Decode, upload and letterbox a batch on the side stream."""
+        images = list(self._pool.map(self._decode, payloads))
+        width, height = self.detector.cfg.image_size
+        cuda = self._copy_stream is not None
+        ctx = torch.cuda.stream(self._copy_stream) if cuda else contextlib.nullcontext()
+        with ctx:
+            canvases, scales = letterbox_u8_batch(images, width, height, self.device)
+            scales_dev = torch.tensor(scales, dtype=torch.float32, device=self.device)
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
+        return _Staged(canvases, scales_dev, ready)
+
+    # -- serving -------------------------------------------------------------
+
+    def _run(self, staged: _Staged) -> PaddedDetections:
+        """Dispatch detect on the current stream once the batch is staged."""
+        if staged.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(staged.ready)
+            # The side stream allocated these: tell the allocator that the
+            # compute stream uses them too.
+            staged.canvases.record_stream(stream)
+            staged.scales.record_stream(stream)
+        return self.detector.detect_batch(staged.canvases, staged.scales)
+
+    @staticmethod
+    def _unpack(out: PaddedDetections, n: int) -> List[Result]:
+        det, kps, counts = (t.cpu().numpy() for t in (out.det, out.kps, out.count))
+        return [(det[i, : counts[i]], kps[i, : counts[i]]) for i in range(n)]
+
+    def detect_batch(self, payloads: Sequence) -> List[Result]:
+        """Detect faces in up to batch_size payloads: per payload, det (N, 5)
+        and kps (N, 5, 2) in numpy, in the original image's pixels."""
+        if len(payloads) > self.batch_size:
+            raise ValueError(f"batch larger than configured size {self.batch_size}")
+        if not payloads:
+            return []
+        return self._unpack(self._run(self._stage(payloads)), len(payloads))
+
+    def detect_stream(self, payload_iter: Iterable, prefetch: int = 2) -> Iterator[List[Result]]:
+        """Yield ``detect_batch`` results per batch of batch_size payloads
+        (the last may be shorter).  A producer thread stages batch k+1 while
+        batch k computes; a producer error is raised here after the batches
+        already staged have been emitted."""
+        batches: "queue.Queue" = queue.Queue(maxsize=max(1, int(prefetch)))
+        sentinel = object()
+        abandoned = threading.Event()
+
+        def put(item) -> bool:
+            # Give up when the consumer is gone, or the producer would block
+            # on a full queue forever.
+            while not abandoned.is_set():
+                try:
+                    batches.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce() -> None:
+            try:
+                chunk: List = []
+                for payload in payload_iter:
+                    if abandoned.is_set():
+                        return
+                    chunk.append(payload)
+                    if len(chunk) == self.batch_size:
+                        if not put((self._stage(chunk), len(chunk))):
+                            return
+                        chunk = []
+                if chunk:
+                    put((self._stage(chunk), len(chunk)))
+            except BaseException as e:  # re-raised by the consumer
+                put(e)
+            finally:
+                put(sentinel)
+
+        thread = threading.Thread(target=produce, daemon=True)
+        thread.start()
+        try:
+            pending: List[Tuple[PaddedDetections, int]] = []
+            while True:
+                item = batches.get()
+                if item is sentinel:
+                    break
+                if isinstance(item, BaseException):
+                    for out, n in pending:  # drain the dispatched batches first
+                        yield self._unpack(out, n)
+                    thread.join()
+                    raise item
+                staged, n = item
+                pending.append((self._run(staged), n))
+                if len(pending) > 1:
+                    out, n = pending.pop(0)
+                    yield self._unpack(out, n)
+            for out, n in pending:
+                yield self._unpack(out, n)
+            thread.join()
+        finally:
+            abandoned.set()

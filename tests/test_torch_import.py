@@ -28,7 +28,8 @@ def test_port_imports_without_jax():
     report = json.loads(proc.stdout.strip().splitlines()[-1])
     assert report["jax"] == []
     for name in (
-        "kernels.build", "kernels.nms", "ops.nms", "ops.image", "models.weights",
-        "pipeline.detection", "pipeline.face_pipeline", "utils.image_io",
+        "kernels.build", "kernels.nms", "kernels.stem", "ops.nms", "ops.image", "ops.stem",
+        "models.resnet", "models.retinaface", "models.weights", "pipeline.detection",
+        "pipeline.face_pipeline", "serving.detection_server", "utils.image_io",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]

@@ -1,11 +1,13 @@
 """The slice as a whole: the port's FacePipeline against the JAX FacePipeline.
 
 Both run the trained 64-px detector (trained_mnet64.npz), a ResNet-18
-quality head and an IResNet-18 embedding on the same bridged weights, on
-64x64 frames (the letterbox is then the identity, so OpenCV's uint8 resize
-in the JAX batch path does not enter the comparison).  Required: equal
-face counts and quality classes, selected box within 1e-3 px, quality score
-within 1e-4, embedding cosine >= 0.9999.
+quality head and an IResNet-18 embedding on the same bridged weights.  Most
+frames are 64x64, where the letterbox is the identity; the real-resize test
+feeds frames that the letterbox must down- or upscale, where the JAX batch
+path resizes with OpenCV on uint8 (parallel/serving.py::letterbox_host) and
+the port with its bit-exact counterpart (ops/image.py::letterbox_u8).
+Required: equal face counts and quality classes, selected box within 1e-3
+px, quality score within 1e-4, embedding cosine >= 0.9999.
 """
 
 import os
@@ -125,6 +127,24 @@ def test_extract_batch_matches_jax(pipelines, frames):
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         _assert_same(g, w)
+
+
+def _resized(frames, h, w):
+    cv2 = pytest.importorskip("cv2")
+    return [cv2.resize(f, (w, h), interpolation=cv2.INTER_LINEAR) for f in frames]
+
+
+@pytest.mark.parametrize("hw", [(99, 97), (128, 128), (40, 52)])
+def test_extract_batch_real_resize_matches_jax(pipelines, frames, hw):
+    """Frames the batch letterbox must resize: 99x97 and 128x128 (exact 2x)
+    are downscaled into the 64x64 detector, 40x52 is upscaled."""
+    ref, port = pipelines
+    batch = _resized(frames, *hw)
+    got, want = port.extract_batch(batch), ref.extract_batch(batch)
+    assert len(got) == len(want) == len(frames)
+    for g, w in zip(got, want):
+        _assert_same(g, w)
+    assert sum(w.facial_feature is not None for w in want) >= 2
 
 
 def test_extract_batch_equals_single(pipelines, frames):

@@ -1,0 +1,122 @@
+"""The port's single-device DetectionServer.
+
+  - ``detect_batch`` equals the detector's per-image ``__call__`` on frames
+    the letterbox keeps as they are (counts equal, boxes and landmarks within
+    1e-3 px, scores within 1e-5: the batch path's uint8 canvas and the host
+    call's float frame hold the same values, the networks sum in other
+    orders);
+  - ``detect_batch`` equals the JAX DetectionServer on frames it must resize
+    (same bounds), since both letterbox with OpenCV's uint8 arithmetic;
+  - ``detect_stream`` equals ``detect_batch`` per batch, bit for bit, with a
+    partial last batch, on the R50 detector (fused stem path);
+  - a producer error reaches the consumer after the batches already staged.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from rs_face_detection_tpu.configs import FaceDetectionConfig
+from rs_face_detection_tpu.parallel.serving import DetectionServer as JDetectionServer
+from rs_face_detection_tpu.utils.fixtures import load_trained_detector
+from rs_face_detection_tpu_torch.models import weights
+from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
+from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
+from test_torch_detection import _assert_same
+
+torch.set_num_threads(2)
+
+FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+TRAINED = os.path.join(FIXTURES, "trained_mnet64.npz")
+CFG = FaceDetectionConfig(
+    image_size=(64, 64), confidence_threshold=0.3, max_candidates=64, max_detections=8
+)
+
+
+@pytest.fixture(scope="module")
+def mnet():
+    family = "retinaface_mobilenet025"
+    model = weights.load_model(family, weights.state_dict_from_jax(family, TRAINED))
+    return RetinaFaceDetection(CFG, model)
+
+
+@pytest.fixture(scope="module")
+def r50():
+    family = "retinaface_resnet50"
+    cfg = FaceDetectionConfig(backbone="resnet50", image_size=(64, 64))
+    return RetinaFaceDetection(cfg, weights.load_model(family, weights.init_state(family, 0)))
+
+
+@pytest.fixture(scope="module")
+def frames():
+    with np.load(os.path.join(FIXTURES, "ap_eval_set.npz")) as d:
+        ap = list(d["images"][:6])
+    with np.load(os.path.join(FIXTURES, "golden_trained_scene.npz")) as g:
+        scene = g["image"]
+    return [scene, *ap]
+
+
+def _same_results(got, want):
+    assert len(got) == len(want)
+    for (gd, gk), (wd, wk) in zip(got, want):
+        _assert_same(gd, gk, wd, wk)
+
+
+def test_detect_batch_equals_per_image_call(mnet, frames):
+    with DetectionServer(mnet, batch_size=8) as server:
+        got = server.detect_batch(frames)
+    assert sum(len(d) for d, _ in got) >= len(frames)
+    _same_results(got, [mnet(f) for f in frames])
+
+
+def test_detect_batch_matches_jax_server(mnet, frames):
+    cv2 = pytest.importorskip("cv2")
+    batch = [cv2.resize(f, (97, 99), interpolation=cv2.INTER_LINEAR) for f in frames[:4]]
+    batch.append(cv2.resize(frames[4], (128, 128), interpolation=cv2.INTER_LINEAR))
+    ok, png = cv2.imencode(".png", frames[5])
+    assert ok
+    batch.append(png.tobytes())
+    ref = JDetectionServer(load_trained_detector(TRAINED, CFG), batch_size=8, use_native_loader=False)
+    with ref, DetectionServer(mnet, batch_size=8) as server:
+        _same_results(server.detect_batch(batch), ref.detect_batch(batch))
+
+
+def test_detect_stream_equals_detect_batch(r50, frames):
+    payloads = frames + frames[:3]  # 10 frames: batches of 4, 4 and 2
+    with DetectionServer(r50, batch_size=4) as server:
+        streamed = list(server.detect_stream(iter(payloads), prefetch=2))
+        direct = [server.detect_batch(payloads[i : i + 4]) for i in range(0, len(payloads), 4)]
+    assert [len(b) for b in streamed] == [4, 4, 2]
+    for got, want in zip(streamed, direct):
+        for (gd, gk), (wd, wk) in zip(got, want):
+            np.testing.assert_array_equal(gd, wd)
+            np.testing.assert_array_equal(gk, wk)
+
+
+def test_detect_stream_reraises_producer_error_after_draining(mnet, frames):
+    def payloads():
+        yield from frames[:6]
+        raise RuntimeError("decoder failed")
+
+    emitted = []
+    with DetectionServer(mnet, batch_size=3) as server:
+        with pytest.raises(RuntimeError, match="decoder failed"):
+            for batch in server.detect_stream(payloads()):
+                emitted.append(batch)
+        want = [server.detect_batch(frames[:3]), server.detect_batch(frames[3:6])]
+    assert len(emitted) == 2
+    for got, ref in zip(emitted, want):
+        for (gd, _), (wd, _) in zip(got, ref):
+            np.testing.assert_array_equal(gd, wd)
+
+
+def test_batch_limits_and_close(mnet, frames):
+    server = DetectionServer(mnet, batch_size=2)
+    assert server.detect_batch([]) == []
+    with pytest.raises(ValueError, match="larger"):
+        server.detect_batch(frames[:3])
+    server.close()
+    with pytest.raises(RuntimeError):
+        server.detect_batch(frames[:1])
