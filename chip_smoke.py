@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's face-ID main path once on a CUDA card.
+"""Drive the PyTorch port's main paths once on a CUDA card: face-ID and eKYC.
 
 Run from the root of a checkout, with one card:
 
@@ -18,8 +18,9 @@ and the last line is never printed):
   5. main path: FacePipeline(device="cuda").extract_batch on 3 requests of 8
      frames plus extract_image on one, with the trained 640 detector, the
      seeded ResNet-18 quality head and the seeded IResNet-50 embedding; the
-     NMS kernel's launch count must rise by one per detect call; the first
-     request is held against the port's CPU pipeline;
+     NMS kernel's launch count must rise by one per detect call, K2's and
+     K4's stay 0; the first request is held against the port's CPU
+     pipeline;
   6. timings with CUDA events after a warm-up: the median, min and max over
      five windows of back-to-back calls, with TF32 off;
   7. K2 vs plain: the fused ResNet-50 stem kernel against fused_stem_plain
@@ -31,14 +32,35 @@ and the last line is never printed):
      port's CPU path (TF32 off);
   9. R50 main path: FacePipeline with backbone="resnet50" on the card,
      extract_batch on 2 requests of 8 frames plus extract_image on one; K2
-     must launch once per detect_batch and K1 once per detect call; the
+     must launch once per detect_batch, K1 once per detect call, K4 never; the
      first request is held against the port's CPU pipeline;
  10. DetectionServer: detect_batch and detect_stream over 3 batches of 8 on
      the R50 detector, each image equal to detect_batch called directly;
  11. R50 timings as in phase 6: detect b8, extract_batch b8, K2 and the
      plain stem per call at (8, 640, 640), detect_stream img/s;
-then a JSON line of the kernels, and {"ok": true, "device": ...} last.
-Every count a phase checks is set to 0 just before its path runs.
+ 12. K4 vs plain: the flash-attention kernel against attention_plain in
+     bf16 and f32, on strided qkv views at (8, 257, 16, 64), at the
+     verify's (1, 257, 16, 64) and on (2, 17, 2, 32), (1, 1, 16, 64) and
+     (3, 197, 12, 64);
+ 13. ViT parity: the full-width clip_l14 tower on seeded weights, batch 2,
+     in f32 on the card (24 K4 launches) against the port's CPU path;
+ 14. SCRFD parity: the full-width SCRFD at 640, batch 2, maps on the card
+     against the CPU; K1 equal to the plain NMS bit for bit on SCRFD's own
+     top-256 candidates (the batch of two, and one single image); then
+     detect_batch against __call__ per image;
+ 15. eKYC main path: EKYCPipeline on the card with full-width seeded models
+     and bf16 towers, verify_images on 3 (card, selfie) pairs; K4 must
+     launch 48 times, K1 twice and K2 never per verify; the first pair,
+     with f32 towers, is held against the port's CPU pipeline;
+ 16. eKYC timings: verify per pair, one ViT-L/14 tower at b8 in bf16,
+     SCRFD detect_batch b8, K4 per launch at (8, 257, 16, 64) bf16 against
+     its plain version and F.scaled_dot_product_attention (the library
+     yardstick; the port never calls it);
+then a JSON line of the kernels, with each one's bound on the card, and
+{"ok": true, "device": ...} last.
+Every count a phase checks is set to 0 just before its path runs.  The
+three main paths (phases 5, 9 and 15) set all three kernels' counts to 0
+and read all three after, and the kernels line reports exactly those reads.
 
 Frames are composited from tests/fixtures/real_face_crop.npz (the face of
 tests/fixtures/real_face.jpg, box (172, 125, 372, 340), resized to 160x160)
@@ -128,6 +150,295 @@ def fmt(t):
     return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
 
 
+#: Published peaks of one H100 SXM at 700 W: memory rate, f32 rate outside
+#: the tensor cores, dense bf16 tensor-core rate.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
+
+
+def card_bound(n_bytes, n_ops, ops_per_s):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def kernel_counters():
+    """Kernel name -> the wrapper module whose ``launches`` counts it."""
+    from rs_face_detection_tpu_torch.kernels import attention, nms, stem
+
+    return {"nms_mask": nms, "fused_stem": stem, "flash_attention": attention}
+
+
+def zero_counts():
+    for mod in kernel_counters().values():
+        mod.launches = 0
+
+
+def read_counts():
+    return {name: mod.launches for name, mod in kernel_counters().items()}
+
+
+def ekyc_pairs(rng, face, n):
+    """n (card, selfie) pairs: the fixture face on a light document at
+    400x640, and larger on a seeded 480x640 frame of make_frames."""
+    import numpy as np
+
+    pairs = []
+    for _ in range(n):
+        card = np.full((400, 640, 3), 0, np.uint8) + rng.integers(180, 230, size=3).astype(np.uint8)
+        s = int(rng.integers(150, 260))
+        y, x = int(rng.integers(20, 400 - s)), int(rng.integers(20, 300))
+        idx = (np.arange(s) * face.shape[0]) // s
+        card[y : y + s, x : x + s] = face[idx][:, idx]
+        selfie = make_frames(rng, 1, face)[0]
+        s = int(rng.integers(260, 420))
+        y, x = int(rng.integers(0, 480 - s)), int(rng.integers(0, 640 - s))
+        idx = (np.arange(s) * face.shape[0]) // s
+        selfie[y : y + s, x : x + s] = face[idx][:, idx]
+        pairs.append((card, selfie))
+    return pairs
+
+
+def ekyc_phases(dev, rng, face, card):
+    """Phases 12-16 (K4 and the eKYC path); returns the K1 and K4 numbers
+    for the kernels line.  TF32 is off throughout."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from rs_face_detection_tpu_torch.kernels import attention as katt
+    from rs_face_detection_tpu_torch.kernels import nms as knms
+    from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.models.vit import cast_for_serving
+    from rs_face_detection_tpu_torch.ops.attention import attention_plain
+    from rs_face_detection_tpu_torch.ops.image import letterbox, letterbox_u8_batch
+    from rs_face_detection_tpu_torch.ops.nms import nms_mask_plain
+    from rs_face_detection_tpu_torch.pipeline.detection import topk_candidates
+    from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import (
+        DEFAULT_FAMILIES,
+        EKYCPipeline,
+        EKYCResult,
+        SCRFDDetection,
+    )
+
+    # 12. K4 vs plain.  Bounds: f32 2e-5 of max|v| (sums in another order);
+    # bf16 1e-2 of max|v|, on the same bf16 inputs (P is rounded to bf16).
+    k4_err, k4_lines = 0.0, []
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
+        # (1, 257, 16, 64) is what each tower of a verify gives K4.
+        for shape in ((8, 257, 16, 64), (1, 257, 16, 64), (2, 17, 2, 32), (1, 1, 16, 64), (3, 197, 12, 64)):
+            b, n, h, d = shape
+            qkv = torch.from_numpy(rng.normal(size=(b, n, 3, h, d)).astype(np.float32)).to(dev, dtype)
+            q, k, v = qkv.unbind(2)  # strided views of the packed tensor
+            got = katt.flash_attention_cuda(q, k, v)
+            want = attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            check(got.shape == shape and got.dtype == dtype, f"K4 output {tuple(got.shape)} {got.dtype}")
+            check(bool(torch.isfinite(got.float()).all()), f"K4 not finite at {shape} {dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            limit = tol * float(v.float().abs().max())
+            check(err <= limit, f"K4 != plain at {shape} {dtype}: {err} > {limit}")
+            k4_err = max(k4_err, err)
+            k4_lines.append(f"{str(dtype)[6:]} {shape} {err:.3g} (<= {limit:.3g})")
+    print(f"phase 12 K4 vs plain (strided qkv views): {'; '.join(k4_lines)}")
+
+    # 13. ViT parity, f32: the card (K4's f32 path) against the CPU.
+    t0 = time.perf_counter()
+    clip_sd = weights.init_state("clip_l14", SEED, 2)
+    init_s = time.perf_counter() - t0
+    vit_gpu = weights.load_model("clip_l14", clip_sd).to(dev)
+    vit_cpu = weights.load_model("clip_l14", clip_sd)
+    x = torch.from_numpy(rng.normal(size=(2, 3, 224, 224)).astype(np.float32))
+    with torch.no_grad():
+        katt.launches = 0
+        probs_gpu = vit_gpu(x.to(dev))
+        torch.cuda.synchronize()
+        vit_launches = katt.launches
+        probs_cpu = vit_cpu(x)
+    check(vit_launches == 24, f"clip_l14 launched K4 {vit_launches} times, not 24")
+    check(bool(torch.isfinite(probs_gpu).all()) and probs_gpu.shape == (2, 2), "ViT output not a finite (2, 2)")
+    vit_err = float((probs_gpu.cpu() - probs_cpu).abs().max())
+    check(vit_err <= 1e-4, f"ViT GPU vs CPU probabilities: {vit_err} > 1e-4")
+    del vit_cpu, vit_gpu
+    print(
+        f"phase 13 ViT parity: clip_l14 (24 blocks, width 1024, 16 heads) at 224, batch 2, f32, TF32 off; "
+        f"{vit_launches} K4 launches; probabilities max abs err {vit_err:.3g} (<= 1e-4); "
+        f"seeded init {init_s:.1f} s on the host"
+    )
+
+    # 14. SCRFD parity at 640, batch 2.  Bound: maps within 1e-4 of their
+    # magnitude (f32 sums in other orders through ~30 convolutions).
+    scrfd_sd = weights.init_state("scrfd", SEED)
+    det_gpu = SCRFDDetection(model=weights.load_model("scrfd", scrfd_sd), device=dev)
+    det_cpu = SCRFDDetection(model=weights.load_model("scrfd", scrfd_sd), device="cpu")
+    frames = make_frames(rng, 2, face, h=640, w=640)
+    batch = torch.from_numpy(np.stack(frames))
+    with torch.no_grad():
+        maps_gpu = det_gpu.forward(batch.to(dev).float())
+        maps_cpu = det_cpu.forward(batch.float())
+    scrfd_rel = 0.0
+    for stride, maps in maps_cpu.items():
+        for key, ref in maps.items():
+            got = maps_gpu[stride][key].cpu()
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all()), f"bad SCRFD map {stride}/{key}")
+            scrfd_rel = max(scrfd_rel, float((got - ref).abs().max()) / max(1.0, float(ref.abs().max())))
+    check(scrfd_rel <= 1e-4, f"SCRFD GPU vs CPU maps: {scrfd_rel} of the magnitude > 1e-4")
+    # K1 on SCRFD's own top-256 candidates, bit for bit: the two frames as a
+    # batch, and one 480x640 frame through the single-image letterbox.
+    iou = det_gpu.sel_cfg.iou_threshold
+    single, _ = letterbox(torch.from_numpy(make_frames(rng, 1, face)[0]).to(dev), 640, 640)
+    k1_err, k1_cases = 0.0, []
+    with torch.no_grad():
+        for imgs in (batch.to(dev).float(), single[None]):
+            cand = topk_candidates(*det_gpu.decode(det_gpu.forward(imgs)), det_gpu.sel_cfg)
+            got, want = knms.nms_mask_cuda(cand.boxes, cand.valid, iou), nms_mask_plain(cand.boxes, cand.valid, iou)
+            torch.cuda.synchronize()
+            k1_err = max(k1_err, float((got.int() - want.int()).abs().max()))
+            check(torch.equal(got, want), f"K1 != plain on SCRFD's candidates {tuple(cand.valid.shape)}")
+            k1_cases.append(f"{tuple(cand.valid.shape)} {int(cand.valid.sum())} valid, {int(got.sum())} kept")
+    knms.launches = 0
+    out = det_gpu.detect_batch(batch, torch.ones(2))
+    singles = [det_gpu(f) for f in frames]
+    check(knms.launches == 3, f"SCRFD launched K1 {knms.launches} times for 3 detect calls")
+    batch_err, n_faces = 0.0, []
+    for i, (sd, sk) in enumerate(singles):
+        n = int(out.count[i])
+        check(n == len(sd), f"SCRFD detect_batch found {n} faces, __call__ {len(sd)}")
+        n_faces.append(n)
+        if n:
+            batch_err = max(
+                batch_err,
+                float(np.abs(out.det[i, :n].cpu().numpy() - sd).max()),
+                float(np.abs(out.kps[i, :n].cpu().numpy() - sk).max()),
+            )
+    check(batch_err <= 1e-3, f"SCRFD detect_batch vs __call__: {batch_err} > 1e-3")
+    print(
+        f"phase 14 SCRFD parity: width 32, neck 32 at 640, batch 2; maps max err {scrfd_rel:.3g} of their "
+        f"magnitude (<= 1e-4); K1 equal to plain (torch.equal) on SCRFD's top-256 candidates "
+        f"{'; '.join(k1_cases)}; detect_batch vs __call__ faces {n_faces}, max abs err {batch_err:.3g} px"
+    )
+
+    # 15. The eKYC main path: bf16 towers, counted.
+    sds = {name: scrfd_sd if fam == "scrfd" else clip_sd if fam == "clip_l14" else None
+           for name, fam in DEFAULT_FAMILIES.items()}
+    for name, fam in DEFAULT_FAMILIES.items():
+        if sds[name] is None:
+            sds[name] = weights.init_state(fam, SEED, 2)
+
+    def models(tower_dtype):
+        out = {name: weights.load_model(DEFAULT_FAMILIES[name], sd) for name, sd in sds.items()}
+        if tower_dtype == torch.bfloat16:
+            for name, fam in DEFAULT_FAMILIES.items():
+                if fam == "clip_l14":
+                    cast_for_serving(out[name])
+        return out
+
+    pipe = EKYCPipeline(models=models(torch.bfloat16), device="cuda")
+    pairs = ekyc_pairs(rng, face, 3)
+    pipe.verify_images(*pairs[0])  # warm-up, before the counted run
+    torch.cuda.synchronize()
+    zero_counts()
+    results = [pipe.verify_images(c, s) for c, s in pairs]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    ekyc_nms, ekyc_att = counts["nms_mask"], counts["flash_attention"]
+    check(ekyc_nms == 2 * len(pairs), f"K1 launched {ekyc_nms} times for {len(pairs)} verifies")
+    check(ekyc_att == 48 * len(pairs), f"K4 launched {ekyc_att} times for {len(pairs)} verifies")
+    check(counts["fused_stem"] == 0, f"K2 launched {counts['fused_stem']} times on the eKYC path")
+    for r in results:
+        check(isinstance(r, EKYCResult) and r.card_face_found and r.selfie_face_found, "a face was not found")
+        check(np.isfinite(r.similarity) and -1.0001 <= r.similarity <= 1.0001, f"similarity {r.similarity}")
+        check(r.same_person == (r.similarity >= 0.4) and r.same_ekyc == (r.similarity >= 0.3), "thresholds")
+        check(all(isinstance(getattr(r, f), bool) for f in (
+            "selfie_mask", "selfie_covered", "selfie_live_crop", "selfie_live_full")), "head booleans")
+        check(0.0 <= r.selfie_quality <= 1.0, f"selfie quality {r.selfie_quality}")
+        check(r.card_face_box.shape == (5,) and r.selfie_face_box.shape == (5,), "face boxes not (5,)")
+    f32_gpu = EKYCPipeline(models=models(torch.float32), device="cuda")
+    t_cpu = time.perf_counter()
+    f32_cpu = EKYCPipeline(models=models(torch.float32), device="cpu")
+    g, c = f32_gpu.verify_images(*pairs[0]), f32_cpu.verify_images(*pairs[0])
+    cpu_s = time.perf_counter() - t_cpu
+    for field in ("card_face_found", "selfie_face_found", "same_person", "same_ekyc", "selfie_mask",
+                  "selfie_covered", "selfie_live_crop", "selfie_live_full"):
+        check(getattr(g, field) == getattr(c, field), f"eKYC GPU vs CPU: {field} differs")
+    ekyc_box = max(float(np.abs(g.card_face_box - c.card_face_box).max()),
+                   float(np.abs(g.selfie_face_box - c.selfie_face_box).max()))
+    ekyc_sim = abs(g.similarity - c.similarity)
+    check(ekyc_box <= 1e-2, f"eKYC GPU vs CPU box: {ekyc_box} > 1e-2 px")
+    check(ekyc_sim <= 1e-4, f"eKYC GPU vs CPU similarity: {ekyc_sim} > 1e-4")
+    print(
+        f"phase 15 eKYC main path: 3 x verify_images (card and selfie 640 wide), full-width seeded "
+        f"SCRFD, IResNet-50, 2 ResNet-18 heads and 2 bf16 clip_l14 towers; K4 launches {ekyc_att} "
+        f"(48 per verify), K1 launches {ekyc_nms} (2 per verify), K2 launches {counts['fused_stem']}; similarities "
+        f"{[round(r.similarity, 4) for r in results]}; pair 1 with f32 towers vs the CPU pipeline "
+        f"({cpu_s:.1f} s on the CPU): box max err {ekyc_box:.3g} px, similarity err {ekyc_sim:.3g}"
+    )
+    del f32_cpu, f32_gpu
+
+    # 16. eKYC timings (CUDA events and the host clock, after warm-ups).
+    verify_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for c_img, s_img in pairs:
+            pipe.verify_images(c_img, s_img)
+        verify_s.append((time.perf_counter() - t0) * 1e3 / len(pairs))
+    verify_s.sort()
+    tower = pipe.heads["fas_crop"][0]
+    x8 = torch.from_numpy(rng.normal(size=(8, 3, 224, 224)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        for _ in range(2):
+            tower(x8)
+        tower_ms = cuda_ms(lambda: tower(x8), 5)
+    canv, _ = letterbox_u8_batch(make_frames(rng, BATCH, face), 640, 640, dev)
+    det_scales = torch.ones(BATCH)
+    for _ in range(2):
+        det_gpu.detect_batch(canv, det_scales)
+    scrfd_ms = cuda_ms(lambda: det_gpu.detect_batch(canv, det_scales), 10)
+    qkv = torch.from_numpy(rng.normal(size=(8, 257, 3, 16, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+    q, k, v = qkv.unbind(2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, N, D) views of the same tensors
+    for _ in range(5):
+        katt.flash_attention_cuda(q, k, v)
+        F.scaled_dot_product_attention(qt, kt, vt)
+    k4_ms = cuda_ms(lambda: katt.flash_attention_cuda(q, k, v), 200)
+    k4_plain_ms = cuda_ms(lambda: attention_plain(q, k, v), 20)
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 200)
+    k4_ms2 = cuda_ms(lambda: katt.flash_attention_cuda(q, k, v), 200)
+    sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2).float()
+                      - katt.flash_attention_cuda(q, k, v).float()).abs().max())
+    print(
+        f"phase 16 eKYC verify per pair (host clock, 3 pairs x 5): median {verify_s[2]:.2f} ms "
+        f"(min {verify_s[0]:.2f}, max {verify_s[-1]:.2f}) {card}"
+    )
+    print(f"phase 16 clip_l14 tower b8 bf16: {fmt(tower_ms)}/batch, {8 * 1000 / tower_ms[0]:.1f} img/s {card}")
+    print(f"phase 16 SCRFD detect_batch b8 at 640: {fmt(scrfd_ms)}/batch, {BATCH * 1000 / scrfd_ms[0]:.1f} img/s {card}")
+    b, n, h, d = q.shape
+    k4_bound = card_bound(4 * b * n * h * d * 2, 4 * b * h * n * n * d, BF16_OPS_PER_S)
+    print(
+        f"phase 16 attention (8, 257, 16, 64) bf16 per call (bound {k4_bound[0] * 1e3:.2f} us by "
+        f"{k4_bound[1]}): K4 {fmt(k4_ms)}, plain {fmt(k4_plain_ms)}, "
+        f"scaled_dot_product_attention {fmt(sdpa_ms)}, K4 again {fmt(k4_ms2)}; K4 vs SDPA max abs err "
+        f"{sdpa_err:.3g} {card}"
+    )
+    return {
+        "counts": counts,
+        "nms_err": k1_err,
+        "k4": {
+            "name": "flash_attention",
+            "route": "cuda",
+            "source": "rs_face_detection_tpu_torch/csrc/attention.cu",
+            "replaces": "rs_face_detection_tpu/models/vit.py:35",
+            "max_abs_err": k4_err,
+            "ms": k4_ms[0],
+            "plain_ms": k4_plain_ms[0],
+            "bound_ms": k4_bound[0],
+            "bound_by": k4_bound[1],
+            "library_ms": sdpa_ms[0],
+        },
+    }
+
+
 def main() -> int:
     import torch
 
@@ -168,7 +479,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ("nms", "stem")
+    sources = ("nms", "stem", "attention")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(build.build, sources))
     report = []
@@ -177,7 +488,8 @@ def main() -> int:
         log = build.build_logs.get(name, "").splitlines()
         ptxas = [ln.split("ptxas info    : ")[-1].strip() for ln in log if "registers" in ln or "spill" in ln]
         report.append(f"csrc/{name}.cu: {'; '.join(ptxas)}")
-    print(f"phase 2 build: csrc/nms.cu and csrc/stem.cu in {time.perf_counter() - t0:.2f} s; {' | '.join(report)}")
+    built = ", ".join(f"csrc/{name}.cu" for name in sources)
+    print(f"phase 2 build: {built} in {time.perf_counter() - t0:.2f} s; {' | '.join(report)}")
 
     # 3. K1 vs plain, bit for bit
     max_err = 0.0
@@ -224,7 +536,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     det_gpu = RetinaFaceDetection(cfg.detection, weights.load_model(det_family, det_sd), device=dev)
-    det_cpu = RetinaFaceDetection(cfg.detection, weights.load_model(det_family, det_sd))
+    det_cpu = RetinaFaceDetection(cfg.detection, weights.load_model(det_family, det_sd), device="cpu")
     with torch.no_grad():
         maps_gpu = det_gpu.forward(canvas.float())
         maps_cpu = det_cpu.forward(canvas.cpu().float())
@@ -254,13 +566,16 @@ def main() -> int:
     pipe = FacePipeline(cfg, models=models(), device="cuda")
     pipe.extract_batch(frames[:BATCH])  # warm-up, before the counted run
     torch.cuda.synchronize()
-    knms.launches = 0
+    zero_counts()
     requests = [frames[i * BATCH : (i + 1) * BATCH] for i in range(3)]
     results = [pipe.extract_batch(r) for r in requests]
     single = pipe.extract_image(frames[3 * BATCH])
     torch.cuda.synchronize()
-    main_launches = knms.launches
+    by_path = {"mobilenet025": read_counts()}
+    main_launches = by_path["mobilenet025"]["nms_mask"]
     check(main_launches == 4, f"NMS kernel launched {main_launches} times for 4 detect calls")
+    check(by_path["mobilenet025"]["fused_stem"] == 0 and by_path["mobilenet025"]["flash_attention"] == 0,
+          f"the mnet path launched K2 or K4: {by_path['mobilenet025']}")
     flat = [r for req in results for r in req] + [single]
     selected = 0
     for r in flat:
@@ -356,7 +671,7 @@ def main() -> int:
     r50_family = "retinaface_resnet50"
     r50_sd = weights.init_state(r50_family, SEED)
     r50_gpu = RetinaFaceDetection(rcfg, weights.load_model(r50_family, r50_sd), device=dev)
-    r50_cpu = RetinaFaceDetection(rcfg, weights.load_model(r50_family, r50_sd))
+    r50_cpu = RetinaFaceDetection(rcfg, weights.load_model(r50_family, r50_sd), device="cpu")
     with torch.no_grad():
         kstem.launches = 0
         maps_gpu = r50_gpu.model.forward_pooled(fused_stem(r50_canvas[:2], *r50_gpu.stem_consts))
@@ -395,15 +710,16 @@ def main() -> int:
     r50_pipe = FacePipeline(r50_cfg, models=r50_models(), device="cuda")
     r50_pipe.extract_batch(frames[:BATCH])  # warm-up, before the counted run
     torch.cuda.synchronize()
-    knms.launches = 0
-    kstem.launches = 0
+    zero_counts()
     r50_requests = [frames[i * BATCH : (i + 1) * BATCH] for i in range(2)]
     r50_results = [r50_pipe.extract_batch(r) for r in r50_requests]
     r50_single = r50_pipe.extract_image(frames[2 * BATCH])
     torch.cuda.synchronize()
-    r50_nms_launches, r50_stem_launches = knms.launches, kstem.launches
+    by_path["resnet50"] = read_counts()
+    r50_nms_launches, r50_stem_launches = by_path["resnet50"]["nms_mask"], by_path["resnet50"]["fused_stem"]
     check(r50_stem_launches == 2, f"K2 launched {r50_stem_launches} times for 2 detect_batch calls")
     check(r50_nms_launches == 3, f"K1 launched {r50_nms_launches} times for 3 detect calls")
+    check(by_path["resnet50"]["flash_attention"] == 0, f"the R50 path launched K4: {by_path['resnet50']}")
     r50_flat = [r for req in r50_results for r in req] + [r50_single]
     r50_selected = 0
     for r in r50_flat:
@@ -497,34 +813,57 @@ def main() -> int:
         f"phase 11 DetectionServer.detect_stream R50 b8, 3 batches from host frames: "
         f"{rate[2]:.1f} img/s (min {rate[0]:.1f}, max {rate[-1]:.1f}) {card}"
     )
+    ekyc = ekyc_phases(dev, rng, face, card)
+    by_path["ekyc"] = ekyc["counts"]
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")
+    ref_mods = sorted(m for m in sys.modules if m.split(".")[0] == "rs_face_detection_tpu")
+    check(not ref_mods, f"the JAX package was imported: {ref_mods[:5]}")
 
-    print(json.dumps({"kernels": [
+    # Bounds at the timed shapes.  K1 at (8, 128): boxes, valid and keep
+    # once each; about 15 f32 operations per IoU that greedy NMS needs
+    # (each kept box against the later valid ones, this run's data).
+    keep = knms.nms_mask_cuda(b8.boxes, b8.valid, 0.45)
+    later_valid = torch.flip(torch.cumsum(torch.flip(b8.valid.int(), [1]), 1), [1]) - b8.valid.int()
+    k1_ious = int((later_valid * keep.int()).sum())
+    k1_bound = card_bound(b8.boxes.numel() * 4 + 2 * b8.valid.numel(), 15 * k1_ious, F32_OPS_PER_S)
+    # K2 at (8, 640, 640): 192 multiply-adds per conv output, 64 channels.
+    kb, kh, kw = r50_canvas.shape[:3]
+    k2_bytes = r50_canvas.numel() + kb * 64 * ((kh // 2 - 1) // 2 + 1) * ((kw // 2 - 1) // 2 + 1) * 4
+    k2_bound = card_bound(k2_bytes, 2 * kb * (kh // 2) * (kw // 2) * 64 * 192, F32_OPS_PER_S)
+
+    entries = [
         {
             "name": "nms_mask",
             "route": "cuda",
             "source": "rs_face_detection_tpu_torch/csrc/nms.cu",
             "replaces": "rs_face_detection_tpu/ops/nms_pallas.py:110",
-            "launches": main_launches + r50_nms_launches,
-            "launches_by_path": {"mobilenet025": main_launches, "resnet50": r50_nms_launches},
-            "max_abs_err": max_err,
+            "max_abs_err": max(max_err, ekyc["nms_err"]),
             "ms": k_ms[0],
             "plain_ms": p_ms[0],
+            "bound_ms": k1_bound[0],
+            "bound_by": k1_bound[1],
+            "library_ms": None,
         },
         {
             "name": "fused_stem",
             "route": "cuda",
             "source": "rs_face_detection_tpu_torch/csrc/stem.cu",
             "replaces": "rs_face_detection_tpu/ops/stem_pallas.py:214",
-            "launches": r50_stem_launches,
-            "launches_by_path": {"mobilenet025": 0, "resnet50": r50_stem_launches},
             "max_abs_err": k2_err,
             "ms": k2_ms[0],
             "plain_ms": stem_plain_ms[0],
+            "bound_ms": k2_bound[0],
+            "bound_by": k2_bound[1],
+            "library_ms": None,
         },
-    ]}))
+        ekyc["k4"],
+    ]
+    for entry in entries:  # launches as counted on each main path's run
+        entry["launches_by_path"] = {path: counts[entry["name"]] for path, counts in by_path.items()}
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}))

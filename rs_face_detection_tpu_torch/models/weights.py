@@ -11,6 +11,11 @@ whose entries are copied here so that no JAX module is imported:
   - Dense kernels are transposed; IResNet's ``fc`` also has its input
     dimension permuted from flax's NHWC flatten to torch's NCHW flatten;
   - BatchNorm scale/bias/mean/var -> weight/bias/running_mean/running_var;
+    GroupNorm and LayerNorm scale/bias -> weight/bias;
+  - the ViT's attention: flax keeps ``query``, ``key`` and ``value``
+    kernels of shape (W, H, D) with (H, D) biases and an ``out`` kernel of
+    shape (H, D, W); they pack into ``in_proj_weight`` (3W, W) in the order
+    q, k, v and ``out_proj`` (the inverse of models/clip_import.py);
   - float16 leaves (``trained_real640.npz`` is stored in float16) become
     float32.
 
@@ -26,6 +31,7 @@ and the 7x7/s2 stem converts exactly to the s2d form
 
 from __future__ import annotations
 
+import math
 import os
 from typing import Any, Dict, Mapping, Tuple
 
@@ -38,6 +44,9 @@ from .classifiers import ResNet18Classifier
 from .resnet import STAGES as RESNET50_STAGES
 from .resnet import stem_to_s2d
 from .retinaface import RetinaFace
+from .scrfd import SCRFD
+from .vit import CONFIGS as VIT_CONFIGS
+from .vit import ViT
 
 #: The model families the bridge and the seeded init know.
 FAMILIES = (
@@ -45,6 +54,8 @@ FAMILIES = (
     "retinaface_resnet50",
     *STAGES,
     "resnet18_classifier",
+    "scrfd",
+    *VIT_CONFIGS,
 )
 #: RetinaFace families and their backbone.
 RETINAFACE = {"retinaface_mobilenet025": "mobilenet025", "retinaface_resnet50": "resnet50"}
@@ -161,7 +172,60 @@ def resnet18_classifier_map() -> Dict[str, Tuple]:
     return m
 
 
+def scrfd_map() -> Dict[str, Tuple]:
+    """{flax path: (torch key, kind)} of models/scrfd.py's SCRFD."""
+    m: Dict[str, Tuple] = {}
+    _conv_bn(m, "stem1", "stem1")
+    _conv_bn(m, "stem2", "stem2")
+    for block in ("s3a", "s3b", "s4a", "s4b", "s5a", "s5b"):
+        _conv_bn(m, f"{block}/c1", f"{block}.c1")
+        _conv_bn(m, f"{block}/c2", f"{block}.c2")
+        if block.endswith("a"):  # the stride-2 blocks change width: a projection
+            _conv_bn(m, f"{block}/proj", f"{block}.proj")
+    for i in range(3):
+        _conv_bn(m, f"neck/lat{i}", f"neck.lat{i}")
+    for i in range(2):
+        _conv_bn(m, f"neck/td{i}", f"neck.td{i}")
+        _conv_bn(m, f"neck/bu{i + 1}", f"neck.bu{i + 1}")
+        m[f"params/head/tower{i}/kernel"] = (f"head.tower{i}", "conv")
+        m[f"params/head/gn{i}"] = (f"head.gn{i}", "norm")
+    for name in ("cls", "bbox", "kps"):
+        m[f"params/head/{name}"] = (f"head.{name}", "conv_bias")
+    return m
+
+
+def vit_map(config: str) -> Dict[str, Tuple]:
+    """{flax path: (torch key, kind)} of models/vit.py's ViT for a config:
+    the inverse of the JAX package's models/clip_import.py."""
+    cfg = VIT_CONFIGS[config]
+    m: Dict[str, Tuple] = {
+        "params/cls": ("class_embedding", "flat"),
+        "params/pos_embed": ("positional_embedding", "squeeze0"),
+        "params/ln_final": ("ln_post", "norm"),
+        "params/head": ("head", "dense"),
+    }
+    if cfg.pre_ln:  # CLIP: ln_pre, and a patchify conv without bias
+        m["params/ln_pre"] = ("ln_pre", "norm")
+        m["params/patchify/kernel"] = ("conv1", "conv")
+    else:
+        m["params/patchify"] = ("conv1", "conv_bias")
+    if cfg.proj_dim:
+        m["params/proj/kernel"] = ("proj", "raw")
+    for i in range(cfg.depth):
+        t, f = f"transformer.resblocks.{i}", f"params/block{i}"
+        m[f"{f}/ln1"] = (f"{t}.ln_1", "norm")
+        m[f"{f}/ln2"] = (f"{t}.ln_2", "norm")
+        m[f"{f}/attn"] = (f"{t}.attn", "attention")
+        m[f"{f}/fc1"] = (f"{t}.mlp.c_fc", "dense")
+        m[f"{f}/fc2"] = (f"{t}.mlp.c_proj", "dense")
+    return m
+
+
 def mapping_for(family: str) -> Dict[str, Tuple]:
+    if family == "scrfd":
+        return scrfd_map()
+    if family in VIT_CONFIGS:
+        return vit_map(family)
     if family == "retinaface_mobilenet025":
         return retinaface_mobilenet025_map()
     if family == "retinaface_resnet50":
@@ -173,9 +237,46 @@ def mapping_for(family: str) -> Dict[str, Tuple]:
     raise ValueError(f"unknown family {family!r} (one of {FAMILIES})")
 
 
-def build_model(family: str, num_outputs: int = 4) -> nn.Module:
-    """The port's module for a family, in eval mode, on the CPU."""
-    if family in RETINAFACE:
+def leaves_of(path: str, kind: str) -> Tuple[str, ...]:
+    """The flax leaves one map entry reads, in the order state_dict_from_jax
+    takes them: the loader reads every leaf through this function, so it
+    and the coverage of ``mapped_leaves`` cannot disagree."""
+    if kind in ("conv", "raw", "flat", "squeeze0"):
+        return (path,)
+    if kind in ("conv_bias", "dense", "dense_nchw"):
+        return (f"{path}/kernel", f"{path}/bias")
+    if kind == "norm":
+        return (f"{path}/scale", f"{path}/bias")
+    if kind == "bn":
+        mod = path[len("params/"):]
+        return (
+            f"params/{mod}/scale", f"params/{mod}/bias",
+            f"batch_stats/{mod}/mean", f"batch_stats/{mod}/var",
+        )
+    if kind == "attention":
+        return tuple(
+            f"{path}/{proj}/{leaf}"
+            for proj in ("query", "key", "value", "out")
+            for leaf in ("kernel", "bias")
+        )
+    raise ValueError(f"unknown kind {kind!r} for {path}")
+
+
+def mapped_leaves(family: str) -> set:
+    """Every flax leaf the family's map reads (shapes are not needed)."""
+    return {
+        leaf for path, spec in mapping_for(family).items() for leaf in leaves_of(path, spec[1])
+    }
+
+
+def build_model(family: str, num_outputs: int = 4, image_size: int = 224) -> nn.Module:
+    """The port's module for a family, in eval mode, on the CPU (a ViT for
+    ``image_size`` square inputs; SCRFD at width 32, neck 32)."""
+    if family == "scrfd":
+        model = SCRFD()
+    elif family in VIT_CONFIGS:
+        model = ViT(family, num_outputs, image_size)
+    elif family in RETINAFACE:
         model = RetinaFace(RETINAFACE[family])
     elif family in STAGES:
         model = IResNet(family)
@@ -218,40 +319,52 @@ def state_dict_from_jax(family: str, source: Any) -> Dict[str, torch.Tensor]:
     """
     flat = flat_variables(source)
     used = set()
-
-    def take(key: str) -> np.ndarray:
-        used.add(key)
-        return flat[key]
-
     sd: Dict[str, torch.Tensor] = {}
     for path, spec in mapping_for(family).items():
         key, kind = spec[0], spec[1]
+        names = leaves_of(path, kind)
+        used.update(names)
+        leaves = [flat[name] for name in names]
         if kind == "conv":
-            sd[f"{key}.weight"] = _tensor(take(path).transpose(3, 2, 0, 1))
+            sd[f"{key}.weight"] = _tensor(leaves[0].transpose(3, 2, 0, 1))
         elif kind == "conv_bias":
-            sd[f"{key}.weight"] = _tensor(take(f"{path}/kernel").transpose(3, 2, 0, 1))
-            sd[f"{key}.bias"] = _tensor(take(f"{path}/bias"))
+            kernel, bias = leaves
+            sd[f"{key}.weight"] = _tensor(kernel.transpose(3, 2, 0, 1))
+            sd[f"{key}.bias"] = _tensor(bias)
         elif kind == "dense":
-            sd[f"{key}.weight"] = _tensor(take(f"{path}/kernel").T)
-            sd[f"{key}.bias"] = _tensor(take(f"{path}/bias"))
+            kernel, bias = leaves
+            sd[f"{key}.weight"] = _tensor(kernel.T)
+            sd[f"{key}.bias"] = _tensor(bias)
         elif kind == "dense_nchw":
             c, h, w = spec[2]
-            kernel = take(f"{path}/kernel")  # (h*w*c, out): rows in NHWC order
+            kernel, bias = leaves  # kernel (h*w*c, out): rows in NHWC order
             out_f = kernel.shape[1]
             weight = kernel.T.reshape(out_f, h, w, c).transpose(0, 3, 1, 2)
             sd[f"{key}.weight"] = _tensor(weight.reshape(out_f, c * h * w))
-            sd[f"{key}.bias"] = _tensor(take(f"{path}/bias"))
+            sd[f"{key}.bias"] = _tensor(bias)
         elif kind == "bn":
-            mod = path[len("params/"):]
-            sd[f"{key}.weight"] = _tensor(take(f"params/{mod}/scale"))
-            sd[f"{key}.bias"] = _tensor(take(f"params/{mod}/bias"))
-            sd[f"{key}.running_mean"] = _tensor(take(f"batch_stats/{mod}/mean"))
-            sd[f"{key}.running_var"] = _tensor(take(f"batch_stats/{mod}/var"))
+            for suffix, leaf in zip(("weight", "bias", "running_mean", "running_var"), leaves):
+                sd[f"{key}.{suffix}"] = _tensor(leaf)
             sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
         elif kind == "raw":
-            sd[key] = _tensor(take(path))
-        else:
-            raise ValueError(f"unknown kind {kind!r} for {path}")
+            sd[key] = _tensor(leaves[0])
+        elif kind == "flat":
+            sd[key] = _tensor(leaves[0].reshape(-1))
+        elif kind == "squeeze0":
+            sd[key] = _tensor(leaves[0][0])
+        elif kind == "norm":
+            sd[f"{key}.weight"], sd[f"{key}.bias"] = (_tensor(leaf) for leaf in leaves)
+        elif kind == "attention":
+            # query, key, value: (W, H, D) kernels -> (H*D, W) rows, stacked
+            # in that order, and (H, D) biases; out: (H, D, W) kernel.
+            qk, qb, kk, kb, vk, vb, out, out_bias = leaves
+            width = qk.shape[0]
+            sd[f"{key}.in_proj_weight"] = _tensor(
+                np.concatenate([kr.reshape(width, -1).T for kr in (qk, kk, vk)])
+            )
+            sd[f"{key}.in_proj_bias"] = _tensor(np.concatenate([b.reshape(-1) for b in (qb, kb, vb)]))
+            sd[f"{key}.out_proj.weight"] = _tensor(out.reshape(-1, out.shape[-1]).T)
+            sd[f"{key}.out_proj.bias"] = _tensor(out_bias)
     unused = sorted(set(flat) - used)
     if unused:
         raise ValueError(f"{family}: JAX leaves not mapped: {unused[:8]}")
@@ -260,20 +373,28 @@ def state_dict_from_jax(family: str, source: Any) -> Dict[str, torch.Tensor]:
 
 def init_state(family: str, seed: int, num_outputs: int = 4) -> Dict[str, torch.Tensor]:
     """Seeded full-width state_dict: conv and linear weights N(0, 1/fan_in),
-    biases 0, BatchNorm identity (weight 1, bias 0, mean 0, var 1), PReLU
-    slopes 0.25 -- flax's default initializers, drawn from numpy."""
+    biases 0, BatchNorm identity (weight 1, bias 0, mean 0, var 1), Group-
+    and LayerNorm weight 1 and bias 0, PReLU slopes 0.25, a ViT's packed qkv
+    and ``proj`` N(0, 1/fan_in) and its CLS token and position embedding
+    N(0, 0.02^2) -- flax's default initializers and the ViT's own, drawn
+    from numpy."""
     rng = np.random.default_rng(seed)
     model = build_model(family, num_outputs)
     sd: Dict[str, torch.Tensor] = {}
+
+    def normal(shape, fan_in: int) -> torch.Tensor:
+        return _tensor(rng.standard_normal(shape, dtype=np.float32) / np.float32(np.sqrt(fan_in)))
+
     for name, module in model.named_modules():
         prefix = f"{name}." if name else ""
         if isinstance(module, (nn.Conv2d, nn.Linear)):
             shape = tuple(module.weight.shape)
-            fan_in = int(np.prod(shape[1:]))
-            w = rng.standard_normal(shape, dtype=np.float32) / np.float32(np.sqrt(fan_in))
-            sd[f"{prefix}weight"] = _tensor(w)
+            sd[f"{prefix}weight"] = normal(shape, int(np.prod(shape[1:])))
             if module.bias is not None:
                 sd[f"{prefix}bias"] = torch.zeros(shape[0])
+        elif isinstance(module, (nn.GroupNorm, nn.LayerNorm)):
+            sd[f"{prefix}weight"] = torch.ones_like(module.weight)
+            sd[f"{prefix}bias"] = torch.zeros_like(module.bias)
         elif isinstance(module, nn.modules.batchnorm._BatchNorm):
             n = module.num_features
             sd[f"{prefix}weight"] = torch.ones(n)
@@ -283,16 +404,42 @@ def init_state(family: str, seed: int, num_outputs: int = 4) -> Dict[str, torch.
             sd[f"{prefix}num_batches_tracked"] = torch.tensor(0)
         elif isinstance(module, nn.PReLU):
             sd[f"{prefix}weight"] = torch.full((module.num_parameters,), 0.25)
+    for name, param in model.named_parameters():  # the ViT's own parameters
+        if name in sd:
+            continue
+        shape = tuple(param.shape)
+        if name.endswith("in_proj_bias"):
+            sd[name] = torch.zeros(shape)
+        elif name.endswith("in_proj_weight"):
+            sd[name] = normal(shape, shape[1])
+        elif name == "proj":  # applied as x @ proj
+            sd[name] = normal(shape, shape[0])
+        elif name in ("class_embedding", "positional_embedding"):
+            sd[name] = _tensor(rng.normal(0.0, 0.02, size=shape).astype(np.float32))
+        else:
+            raise ValueError(f"{family}: no initializer for {name}")
     return sd
 
 
 def load_model(family: str, state_dict: Dict[str, torch.Tensor]) -> nn.Module:
-    """Build a family's module and load a complete state_dict into it (a
-    classifier takes its number of outputs from ``fc.weight``)."""
-    num_outputs = 4
-    if family == "resnet18_classifier":
-        num_outputs = int(state_dict["fc.weight"].shape[0])
-    model = build_model(family, num_outputs)
+    """Build a family's module and load a complete state_dict into it.
+
+    A classifier takes its number of outputs from ``fc.weight``, a ViT from
+    ``head.weight`` and its input size from ``positional_embedding``, SCRFD
+    its backbone and neck widths from its first convs.
+    """
+    if family == "scrfd":
+        width = int(state_dict["stem1.0.weight"].shape[0])
+        model = SCRFD(width, int(state_dict["neck.lat0.0.weight"].shape[0])).eval()
+    elif family in VIT_CONFIGS:
+        grid = math.isqrt(int(state_dict["positional_embedding"].shape[0]) - 1)
+        num_classes = int(state_dict["head.weight"].shape[0])
+        model = build_model(family, num_classes, grid * VIT_CONFIGS[family].patch)
+    else:
+        num_outputs = 4
+        if family == "resnet18_classifier":
+            num_outputs = int(state_dict["fc.weight"].shape[0])
+        model = build_model(family, num_outputs)
     model.load_state_dict(state_dict, strict=True)
     return model
 

@@ -13,7 +13,7 @@ from typing import List, Mapping, Sequence, Tuple
 
 import numpy as np
 
-from rs_face_detection_tpu.configs import AnchorConfig
+from ..configs import AnchorConfig
 
 
 def _round_half_away(x: np.ndarray) -> np.ndarray:
@@ -103,3 +103,25 @@ def full_anchor_table(
         tables.append(anchor_plane(fh, fw, stride, base))
         level_info.append((stride, fh, fw, base.shape[0]))
     return np.concatenate(tables, axis=0), level_info
+
+
+def scrfd_anchor_centers(
+    image_size: Tuple[int, int], num_anchors: int = 2
+) -> Tuple[np.ndarray, List[Tuple[int, int, int, int]]]:
+    """SCRFD anchor centers (total, 2) f32 and [(stride, h, w, A)] for a
+    (width, height) detector input: (x*stride, y*stride), repeated per
+    anchor, flattened in (h, w, a) order to match the head maps.
+
+    Copy of rs_face_detection_tpu/pipeline/ekyc_pipeline.py::
+    scrfd_anchor_centers.
+    """
+    width, height = image_size
+    centers, levels = [], []
+    for s in (8, 16, 32):
+        fh, fw = -(-height // s), -(-width // s)
+        grid = np.zeros((fh, fw, num_anchors, 2), np.float32)
+        grid[..., 0] = (np.arange(fw, dtype=np.float32) * s)[None, :, None]
+        grid[..., 1] = (np.arange(fh, dtype=np.float32) * s)[:, None, None]
+        centers.append(grid.reshape(-1, 2))
+        levels.append((s, fh, fw, num_anchors))
+    return np.concatenate(centers), levels

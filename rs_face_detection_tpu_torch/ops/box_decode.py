@@ -1,9 +1,9 @@
 """Box / landmark delta decoding and clipping on tensors.
 
 Counterpart of rs_face_detection_tpu/ops/box_decode.py (``bbox_pred``,
-``landmark_pred``, ``clip_boxes``), with the same "+1" width/height
-convention and operation order.  Every function takes any number of leading
-batch dimensions.
+``landmark_pred``, ``clip_boxes``, and SCRFD's ``distance2bbox`` and
+``distance2kps``), with the same "+1" width/height convention and operation
+order.  Every function takes any number of leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -56,3 +56,19 @@ def clip_boxes(boxes: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
         device=boxes.device,
     )
     return torch.minimum(torch.clamp(boxes, min=0.0), bound)
+
+
+def distance2bbox(points: torch.Tensor, distances: torch.Tensor) -> torch.Tensor:
+    """Decode (..., 4) [l, t, r, b] pixel distances against (..., 2) anchor
+    centers into (..., 4) corner boxes: the SCRFD parameterization
+    (rs_face_detection_tpu/ops/box_decode.py::distance2bbox)."""
+    x1 = points[..., 0] - distances[..., 0]
+    y1 = points[..., 1] - distances[..., 1]
+    x2 = points[..., 0] + distances[..., 2]
+    y2 = points[..., 1] + distances[..., 3]
+    return torch.stack([x1, y1, x2, y2], dim=-1)
+
+
+def distance2kps(points: torch.Tensor, distances: torch.Tensor) -> torch.Tensor:
+    """Decode (..., 5, 2) landmark offsets against (..., 2) anchor centers."""
+    return points[..., None, :] + distances

@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rs_face_detection_tpu.configs import FaceAlignmentConfig
+from ..configs import FaceAlignmentConfig
 
 from ..ops.image import crop_resize, warp_affine
 from ..ops.umeyama import umeyama_similarity_np

@@ -13,6 +13,10 @@ detection tail, batched over images:
   4. compact the kept rows into max_detections padded rows plus a count;
   5. descale by the letterbox scale.
 
+``select_and_nms`` runs steps 1, 3 and 4 on rows that are already decoded:
+the SCRFD detector of the eKYC pipeline (pipeline/ekyc_pipeline.py) decodes
+every anchor first, as the JAX package does, and shares the rest.
+
 For the ResNet-50 the batched path (``detect_batch``, ``candidates``) runs
 the whole stem -- normalize, s2d conv, BatchNorm, ReLU, max-pool -- as one
 fused pass over the uint8 canvases (ops/stem.py; the CUDA kernel K2 on the
@@ -30,7 +34,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from rs_face_detection_tpu.configs import RPN_ANCHOR_CFG, FaceDetectionConfig
+from ..configs import RPN_ANCHOR_CFG, FaceDetectionConfig
 
 from ..ops.anchors import full_anchor_table
 from ..ops.box_decode import bbox_pred, clip_boxes, landmark_pred
@@ -57,6 +61,17 @@ class Candidates(NamedTuple):
     valid: torch.Tensor  # (B, k) bool
 
 
+def stable_topk(scores: torch.Tensor, cfg: FaceDetectionConfig):
+    """Confidence filter, then the top max_candidates of (B, K) scores in a
+    stable order: (top scores, -inf where invalid; their indices; valid)."""
+    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device)
+    masked = torch.where(scores >= cfg.confidence_threshold, scores, neg_inf)
+    k = min(cfg.max_candidates, scores.shape[1])
+    sorted_scores, order = torch.sort(masked, dim=1, descending=True, stable=True)
+    top_scores, top_idx = sorted_scores[:, :k], order[:, :k]
+    return top_scores, top_idx, top_scores > neg_inf
+
+
 def select_candidates(
     net_out: Dict[int, Dict[str, torch.Tensor]],
     anchors: torch.Tensor,
@@ -76,13 +91,8 @@ def select_candidates(
     scores = torch.cat(scores_l, dim=1)
     bbox_raw = torch.cat(bbox_l, dim=1)
     lm_raw = torch.cat(lm_l, dim=1)
-
-    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device)
-    masked = torch.where(scores >= cfg.confidence_threshold, scores, neg_inf)
-    k = min(cfg.max_candidates, scores.shape[1])
-    sorted_scores, order = torch.sort(masked, dim=1, descending=True, stable=True)
-    top_scores, top_idx = sorted_scores[:, :k], order[:, :k]
-    valid = top_scores > neg_inf
+    top_scores, top_idx, valid = stable_topk(scores, cfg)
+    k = top_idx.shape[1]
 
     bbox_stds = torch.tensor(cfg.bbox_stds, dtype=torch.float32, device=scores.device)
     anchor_sel = anchors[top_idx]  # (B, k, 4)
@@ -111,6 +121,28 @@ def nms_and_compact(cand: Candidates, cfg: FaceDetectionConfig) -> PaddedDetecti
     return PaddedDetections(det[:, :max_det], kps[:, :max_det].reshape(b, max_det, 5, 2), count)
 
 
+def topk_candidates(
+    scores: torch.Tensor, boxes: torch.Tensor, lms: torch.Tensor, cfg: FaceDetectionConfig
+) -> Candidates:
+    """The stable top-k of rows that are already decoded: (B, K) scores,
+    (B, K, 4) boxes, (B, K, 5, 2) landmarks."""
+    top_scores, top_idx, valid = stable_topk(scores, cfg)
+    k = top_idx.shape[1]
+    top_boxes = torch.gather(boxes, 1, top_idx[..., None].expand(-1, -1, 4))
+    top_lms = torch.gather(lms.reshape(lms.shape[0], -1, 10), 1, top_idx[..., None].expand(-1, -1, 10))
+    return Candidates(
+        top_boxes.contiguous(), top_scores, top_lms.reshape(-1, k, 5, 2), valid.contiguous()
+    )
+
+
+def select_and_nms(
+    scores: torch.Tensor, boxes: torch.Tensor, lms: torch.Tensor, cfg: FaceDetectionConfig
+) -> PaddedDetections:
+    """Decoded rows through topk_candidates and nms_and_compact: the JAX
+    package's ``select_and_nms``, which the SCRFD detector shares."""
+    return nms_and_compact(topk_candidates(scores, boxes, lms, cfg), cfg)
+
+
 def descale(padded: PaddedDetections, inv_scale: torch.Tensor) -> PaddedDetections:
     """Multiply boxes and landmarks by (B,) inverse letterbox scales."""
     inv = inv_scale.reshape(-1, 1, 1)
@@ -127,7 +159,7 @@ class RetinaFaceDetection:
         self,
         cfg: Optional[FaceDetectionConfig] = None,
         model: Optional[nn.Module] = None,
-        device: DeviceLike = "cpu",
+        device: DeviceLike = "cuda",
     ) -> None:
         self.cfg = cfg or FaceDetectionConfig()
         self.device = resolve_device(device)

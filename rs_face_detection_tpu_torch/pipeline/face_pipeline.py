@@ -21,7 +21,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from rs_face_detection_tpu.configs import FacePipelineConfig, FaceQualityClass
+from ..configs import FacePipelineConfig, FaceQualityClass
 
 from ..models.weights import init_state, load_model
 from ..ops.image import bgr_to_rgb, letterbox_u8_batch, normalize, resize_bilinear, warp_affine
@@ -79,7 +79,7 @@ class FacePipeline:
         self,
         config: Optional[FacePipelineConfig] = None,
         models: Optional[Mapping[str, nn.Module]] = None,
-        device: DeviceLike = "cpu",
+        device: DeviceLike = "cuda",
         is_enroll: bool = False,
         process_on_no_face: bool = False,
         compat_area_bug: bool = False,

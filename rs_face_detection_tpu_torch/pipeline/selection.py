@@ -18,7 +18,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from rs_face_detection_tpu.configs import FaceSelectionConfig
+from ..configs import FaceSelectionConfig
 
 
 class FaceSelection:

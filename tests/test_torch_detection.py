@@ -34,7 +34,7 @@ CFG = FaceDetectionConfig(
 def _port(cfg, source):
     family = "retinaface_mobilenet025"
     return RetinaFaceDetection(
-        cfg, weights.load_model(family, weights.state_dict_from_jax(family, source))
+        cfg, weights.load_model(family, weights.state_dict_from_jax(family, source)), device="cpu"
     )
 
 

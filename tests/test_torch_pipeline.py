@@ -70,7 +70,7 @@ def _pipelines(variables, confidence=0.3, process_on_no_face=False):
         models[name] = weights.load_model(family, weights.state_dict_from_jax(family, vs))
     cfg = _config(confidence)
     ref = JFacePipeline(cfg, registry=reg, process_on_no_face=process_on_no_face)
-    port = FacePipeline(cfg, models=models, process_on_no_face=process_on_no_face)
+    port = FacePipeline(cfg, models=models, device="cpu", process_on_no_face=process_on_no_face)
     return ref, port
 
 
@@ -170,7 +170,7 @@ def test_enroll_mode_selects_biggest(variables, frames):
 
 
 def test_default_models_are_seeded():
-    port = FacePipeline(_config())
+    port = FacePipeline(_config(), device="cpu")
     assert port.embedding_model.fc.out_features == 512
     assert port.quality_model.fc.out_features == 4
     assert isinstance(port.extract_image(np.zeros((64, 64, 3), np.uint8)), FaceExtractionResult)

@@ -78,7 +78,7 @@ def r50():
 def pair(r50):
     model, variables = r50
     port = weights.load_model(FAMILY, weights.state_dict_from_jax(FAMILY, variables))
-    return JDetection(CFG, model=model, variables=variables), RetinaFaceDetection(CFG, port)
+    return JDetection(CFG, model=model, variables=variables), RetinaFaceDetection(CFG, port, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -123,7 +123,7 @@ def test_odd_image_size_refuses_the_batched_path(pair, frames):
     batch around the stem; the single-image path runs the module's own stem
     (its odd-size padding is held against flax in test_torch_resnet.py)."""
     _, port = pair
-    odd = RetinaFaceDetection(dataclasses.replace(CFG, image_size=(63, 64)), port.model)
+    odd = RetinaFaceDetection(dataclasses.replace(CFG, image_size=(63, 64)), port.model, device="cpu")
     with pytest.raises(ValueError, match="divisible"):
         odd.detect_batch(np.zeros((1, 64, 63, 3), np.uint8), np.ones(1, np.float32))
     det, kps = odd(frames[1])
@@ -146,7 +146,7 @@ def pipelines(r50):
         reg.register(ModelSpec(name, (112, 112, 3), "test"), model, vs)
         models[name] = weights.load_model(family, weights.state_dict_from_jax(family, vs))
     cfg = FacePipelineConfig(detection=CFG, identification=FaceIdentificationConfig(backbone="iresnet18"))
-    return JFacePipeline(cfg, registry=reg), FacePipeline(cfg, models=models)
+    return JFacePipeline(cfg, registry=reg), FacePipeline(cfg, models=models, device="cpu")
 
 
 def test_pipeline_extract_image_matches_jax(pipelines, frames):
@@ -166,7 +166,7 @@ def test_pipeline_extract_batch_matches_jax(pipelines, frames):
 
 def test_default_models_build_r50():
     cfg = FacePipelineConfig(detection=FaceDetectionConfig(backbone="resnet50", image_size=(64, 64)))
-    port = FacePipeline(cfg)
+    port = FacePipeline(cfg, device="cpu")
     assert port.face_detection.model.backbone == "resnet50"
     assert port.face_detection.stem_consts is not None
     (result,) = port.extract_batch([np.zeros((48, 40, 3), np.uint8)])

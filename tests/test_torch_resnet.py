@@ -97,7 +97,7 @@ def test_r50_u8_stem_path_matches_flax(flax_r50):
     x = (rgb - mean) * (1.0 / np.asarray(cfg.pixel_stds, np.float32)) / np.float32(cfg.pixel_scale)
     want = model.apply(_unflatten(flat), jnp.asarray(x), train=False)
     det = RetinaFaceDetection(
-        cfg, weights.load_model(FAMILY, weights.state_dict_from_jax(FAMILY, flat))
+        cfg, weights.load_model(FAMILY, weights.state_dict_from_jax(FAMILY, flat)), device="cpu"
     )
     with torch.no_grad():
         pooled = fused_stem_plain(torch.from_numpy(imgs), *det.stem_consts)

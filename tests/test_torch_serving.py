@@ -39,14 +39,14 @@ CFG = FaceDetectionConfig(
 def mnet():
     family = "retinaface_mobilenet025"
     model = weights.load_model(family, weights.state_dict_from_jax(family, TRAINED))
-    return RetinaFaceDetection(CFG, model)
+    return RetinaFaceDetection(CFG, model, device="cpu")
 
 
 @pytest.fixture(scope="module")
 def r50():
     family = "retinaface_resnet50"
     cfg = FaceDetectionConfig(backbone="resnet50", image_size=(64, 64))
-    return RetinaFaceDetection(cfg, weights.load_model(family, weights.init_state(family, 0)))
+    return RetinaFaceDetection(cfg, weights.load_model(family, weights.init_state(family, 0)), device="cpu")
 
 
 @pytest.fixture(scope="module")
