@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths once on a CUDA card: face-ID and eKYC.
+"""Drive the PyTorch port's main paths once on a CUDA card: face-ID, eKYC and
+the weight-only int8 FaceExtraction.
 
 Run from the root of a checkout, with one card:
 
@@ -56,11 +57,33 @@ and the last line is never printed):
      SCRFD detect_batch b8, K4 per launch at (8, 257, 16, 64) bf16 against
      its plain version and F.scaled_dot_product_attention (the library
      yardstick; the port never calls it);
+ 17. K3 vs plain: the int8 dequant-matmul against int8_matmul_plain in f32
+     and bf16 arithmetic at the fc's (8, 25088, 512) and (1, 25088, 512), at
+     (3, 1000, 96) and (5, 4095, 130), and at M = 0 (no launch); the port's
+     quantizer on the seeded IResNet-50 (53 int8 leaves, fc q (25088, 512));
+ 18. int8 main path: FaceExtraction(device="cuda", quantized=True) on the
+     seeded full-width IResNet-50, 3 calls of 8 aligned 112x112 crops plus
+     one of 1; K3 must launch once per call, K1, K2 and K4 never; the first
+     call is held against the port's CPU FaceExtraction(quantized=True), and
+     its cosine against the float FaceExtraction on the card is printed;
+ 19. the other staged modules on the card against the CPU: FaceQuality
+     (ResNet-18, 4 classes), FaceQualityAssessment (1 output, no softmax)
+     and FaceAntiSpoofing (four seeded MiniFASNets at 80/80/256/128) on the
+     crops and on the faces phase 5 selected;
+ 20. int8 timings: K3 per launch in f32 and bf16 at (8, 25088, 512) and
+     (1, 25088, 512), on the device (20 calls replayed from a CUDA graph;
+     the kernels line's time) and from Python, its plain version, F.linear
+     on the dequantized f32 weight (the float fc, 4x the weight bytes) both
+     ways, torch._weight_int8pack_mm in bf16 where this torch runs it on
+     CUDA (the library yardstick);
+     FaceExtraction b8 and b1 float against int8, the weight bytes and the
+     peak device memory of one call of each; FaceAntiSpoofing, FaceQuality
+     and FaceQualityAssessment at b8;
 then a JSON line of the kernels, with each one's bound on the card, and
 {"ok": true, "device": ...} last.
 Every count a phase checks is set to 0 just before its path runs.  The
-three main paths (phases 5, 9 and 15) set all three kernels' counts to 0
-and read all three after, and the kernels line reports exactly those reads.
+four main paths (phases 5, 9, 15 and 18) set all four kernels' counts to 0
+and read all four after, and the kernels line reports exactly those reads.
 
 Frames are composited from tests/fixtures/real_face_crop.npz (the face of
 tests/fixtures/real_face.jpg, box (172, 125, 372, 340), resized to 160x160)
@@ -117,6 +140,21 @@ def make_frames(rng, n, face, h=480, w=640):
     return frames
 
 
+def make_crops(rng, n, face, size=112):
+    """n (size, size, 3) uint8 BGR aligned crops: a seeded window of the
+    fixture face resampled by index, as make_frames places it, plus noise."""
+    import numpy as np
+
+    crops = []
+    for _ in range(n):
+        s = int(rng.integers(120, min(face.shape[:2]) + 1))
+        y, x = int(rng.integers(0, face.shape[0] - s + 1)), int(rng.integers(0, face.shape[1] - s + 1))
+        idx = (np.arange(size) * s) // size
+        crop = face[y + idx][:, x + idx].astype(np.float32) + rng.normal(0, 4, size=(size, size, 3))
+        crops.append(np.clip(crop, 0, 255).astype(np.uint8))
+    return crops
+
+
 def random_sorted_boxes(rng, b, k):
     """(b, k, 4) score-sorted boxes with duplicate corners (exact IoU ties)."""
     import numpy as np
@@ -146,6 +184,23 @@ def cuda_ms(fn, iters, windows=5):
     return statistics.median(per_call), min(per_call), max(per_call)
 
 
+def graph_ms(fn, reps=20, iters=10):
+    """Device ms per call of `fn` with the host taken out: `reps` calls
+    captured in one CUDA graph, replayed by cuda_ms; (median, min, max)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture (library handles, workspaces)
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    return tuple(t / reps for t in cuda_ms(graph.replay, iters))
+
+
 def fmt(t):
     return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
 
@@ -165,9 +220,9 @@ def card_bound(n_bytes, n_ops, ops_per_s):
 
 def kernel_counters():
     """Kernel name -> the wrapper module whose ``launches`` counts it."""
-    from rs_face_detection_tpu_torch.kernels import attention, nms, stem
+    from rs_face_detection_tpu_torch.kernels import attention, int8_matmul, nms, stem
 
-    return {"nms_mask": nms, "fused_stem": stem, "flash_attention": attention}
+    return {"nms_mask": nms, "fused_stem": stem, "flash_attention": attention, "int8_matmul": int8_matmul}
 
 
 def zero_counts():
@@ -439,6 +494,211 @@ def ekyc_phases(dev, rng, face, card):
     }
 
 
+def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs):
+    """Phases 17-20 (K3 and the staged per-face modules); returns the counts
+    of the int8 main path and K3's entry of the kernels line.  TF32 is off
+    throughout."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from rs_face_detection_tpu_torch.kernels import int8_matmul as k3
+    from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.models.quantized import quantize_module
+    from rs_face_detection_tpu_torch.ops.quantize import int8_matmul_plain, quantize_array, quantized_bytes
+    from rs_face_detection_tpu_torch.pipeline.antispoofing import FaceAntiSpoofing
+    from rs_face_detection_tpu_torch.pipeline.extraction import FaceExtraction
+    from rs_face_detection_tpu_torch.pipeline.quality import FaceQuality
+    from rs_face_detection_tpu_torch.pipeline.quality_assessment import FaceQualityAssessment
+
+    # 17. K3 vs plain.  Bound: 1e-5 of sum_k |x_k w_kn| per output (both
+    # arithmetics round x and w alike; only the f32 summation order differs).
+    k3_err, k3_lines = 0.0, []
+    for compute in ("f32", "bf16"):
+        for m, k, n in ((8, 25088, 512), (1, 25088, 512), (3, 1000, 96), (5, 4095, 130), (0, 25088, 512)):
+            x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+            q_np, s_np = quantize_array(rng.normal(0, 0.05, size=(k, n)).astype(np.float32))
+            q, s = torch.from_numpy(q_np).to(dev), torch.from_numpy(s_np).to(dev)
+            before = k3.launches
+            got = k3.int8_matmul_cuda(x, q, s, compute)
+            want = int8_matmul_plain(x, q, s, compute)
+            torch.cuda.synchronize()
+            check(got.shape == (m, n) and got.dtype == torch.float32, f"K3 output {tuple(got.shape)} {got.dtype}")
+            check(k3.launches == before + (m > 0), f"K3 launched {k3.launches - before} times at M = {m}")
+            if m == 0:
+                k3_lines.append(f"{compute} {(m, k, n)} empty, no launch")
+                continue
+            check(bool(torch.isfinite(got).all()), f"K3 not finite at {(m, k, n)} {compute}")
+            if compute == "f32":
+                xa, wa = x.abs(), (q.float() * s).abs()
+            else:
+                xa, wa = x.bfloat16().float().abs(), (q.bfloat16() * s.bfloat16()).float().abs()
+            bound = 1e-5 * (xa @ wa)
+            err = (got - want).abs()
+            check(bool((err <= bound).all()), f"K3 != plain at {(m, k, n)} {compute}: {float(err.max())}")
+            k3_err = max(k3_err, float(err.max()))
+            k3_lines.append(f"{compute} {(m, k, n)} {float(err.max()):.3g} ({float((err / bound).max()):.2g} of the bound)")
+    int8_model = quantize_module(weights.load_model("iresnet50", e_sd))
+    q_leaves = [key for key in int8_model.state_dict() if key.endswith(".weight_q")]
+    fc_q = int8_model.fc.weight_q
+    check(len(q_leaves) == 53 and tuple(fc_q.shape) == (25088, 512) and fc_q.dtype == torch.int8,
+          f"quantized IResNet-50: {len(q_leaves)} int8 leaves, fc q {tuple(fc_q.shape)}")
+    print(
+        f"phase 17 K3 vs plain (max abs err, <= 1e-5 of sum |x w|): {'; '.join(k3_lines)}; "
+        f"IResNet-50 quantizer: {len(q_leaves)} int8 leaves, fc q {tuple(fc_q.shape)} int8"
+    )
+
+    # 18. The int8 FaceExtraction main path, counted.
+    crops = make_crops(rng, 3 * BATCH + 1, face)
+    fe8 = FaceExtraction(device="cuda", quantized=True)
+    check(torch.equal(fe8.model.fc.weight_q.cpu(), fc_q), "FaceExtraction's seeded fc is not the quantizer's")
+    fe8(crops[:BATCH])  # warm-up, before the counted run
+    torch.cuda.synchronize()
+    zero_counts()
+    embs = [fe8(crops[i * BATCH : (i + 1) * BATCH]) for i in range(3)] + [fe8(crops[3 * BATCH :])]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(counts["int8_matmul"] == 4, f"K3 launched {counts['int8_matmul']} times for 4 calls")
+    check(counts["nms_mask"] == counts["fused_stem"] == counts["flash_attention"] == 0,
+          f"the int8 path launched another kernel: {counts}")
+    for e, size in zip(embs, (BATCH, BATCH, BATCH, 1)):
+        check(e.shape == (size, 512) and np.isfinite(e).all(), f"int8 embeddings {e.shape}")
+        check(bool(np.all(np.abs(np.linalg.norm(e, axis=1) - 1.0) <= 1e-4)), "int8 embedding norm not 1")
+    t_cpu = time.perf_counter()
+    ref = FaceExtraction(model=weights.load_model("iresnet50", e_sd), device="cpu", quantized=True)(crops[:BATCH])
+    cpu_s = time.perf_counter() - t_cpu
+    int8_err = float(np.abs(embs[0] - ref).max())
+    check(int8_err <= 1e-4, f"int8 FaceExtraction GPU vs CPU: {int8_err} > 1e-4")
+    fe32 = FaceExtraction(model=weights.load_model("iresnet50", e_sd), device="cuda")
+    cos = np.sum(fe32(crops[:BATCH]) * embs[0], axis=1)
+    check(bool((cos > 0.99).all()), f"int8 vs float cosine {cos.min()} <= 0.99")
+    print(
+        f"phase 18 int8 main path: FaceExtraction(quantized=True) on the seeded IResNet-50, 3 x 8 crops + 1; "
+        f"launches {counts}; call 1 vs the CPU int8 FaceExtraction ({cpu_s:.1f} s on the CPU): max abs err "
+        f"{int8_err:.3g} (<= 1e-4); int8 vs float on the card: min cosine {cos.min():.6f} (> 0.99)"
+    )
+
+    # 19. The other staged modules, card vs CPU.  Bounds: probabilities and
+    # live scores within 1e-4; assessment scores within 1e-4 of their
+    # magnitude; classes and flags equal unless a score is within 1e-3 of
+    # its threshold.
+    fqa_sd = weights.init_state("resnet18_classifier", SEED, 1)
+    stages = {}
+    for dev_name in ("cuda", "cpu"):
+        stages[dev_name] = (
+            FaceQuality(model=weights.load_model("resnet18_classifier", q_sd), device=dev_name),
+            FaceQualityAssessment(model=weights.load_model("resnet18_classifier", fqa_sd, softmax=False),
+                                  device=dev_name),
+            FaceAntiSpoofing(device=dev_name),
+        )
+    fas_imgs = [img for img, _ in fas_pairs]
+    fas_boxes = [box for _, box in fas_pairs]
+    outs = {}
+    for dev_name, (fq, fqa, fas) in stages.items():
+        outs[dev_name] = (fq.probabilities(crops[:BATCH]), fq(crops[:BATCH]), fqa(crops[:BATCH]),
+                          fas(fas_imgs, fas_boxes))
+    (gp, (_, gc), (gs, gf), (gl, gls)), (cp, (_, cc), (cs, cf), (cl, cls)) = outs["cuda"], outs["cpu"]
+    fq_err = float(np.abs(gp - cp).max())
+    fqa_err = float(np.abs(np.asarray(gs) - np.asarray(cs)).max()) / max(1.0, float(np.abs(cs).max()))
+    fas_err = float(np.abs(gls - cls).max())
+    check(fq_err <= 1e-4 and gc == cc, f"FaceQuality GPU vs CPU: {fq_err}, classes {gc} vs {cc}")
+    thr_fqa = stages["cpu"][1].cfg.threshold
+    check(fqa_err <= 1e-4 and all(a == b or abs(s - thr_fqa) < 1e-3 for a, b, s in zip(gf, cf, cs)),
+          f"FaceQualityAssessment GPU vs CPU: {fqa_err}")
+    thr_fas = stages["cpu"][2].cfg.threshold
+    check(fas_err <= 1e-4 and all(a == b or abs(s - thr_fas) < 1e-3 for a, b, s in zip(gl, cl, cls)),
+          f"FaceAntiSpoofing GPU vs CPU: {fas_err}")
+    check(all(np.isfinite(v).all() for v in (gp, np.asarray(gs), gls)), "a staged module gave a non-finite value")
+    print(
+        f"phase 19 staged modules, card vs CPU: FaceQuality probabilities {fq_err:.3g}, classes {gc}; "
+        f"FaceQualityAssessment scores {fqa_err:.3g} of their magnitude, flags {gf}; FaceAntiSpoofing on "
+        f"{len(fas_pairs)} selected faces live scores {fas_err:.3g}, liveness {gl.tolist()}"
+    )
+
+    # 20. Timings (TF32 off), at the fc's own int8 weight.
+    q, s = fe8.model.fc.weight_q, fe8.model.fc.weight_scale
+    x8 = torch.from_numpy(rng.normal(size=(BATCH, q.shape[0])).astype(np.float32)).to(dev)
+    x1 = x8[:1].contiguous()
+    w32 = (q.float() * s).t().contiguous()  # the float fc's (512, 25088) weight
+    for x in (x8, x1):
+        for compute in ("f32", "bf16"):
+            for _ in range(5):
+                k3.int8_matmul_cuda(x, q, s, compute)
+    # K3 and the float fc both ways: back to back from Python (what a caller
+    # pays; on a slow host the wrapper's own time sets the pace) and as 20
+    # calls replayed from one CUDA graph (the device's time).
+    k3_ms, k3_dev = {}, {}
+    for m, x in ((8, x8), (1, x1)):
+        for c in ("f32", "bf16"):
+            k3_ms[m, c] = cuda_ms(lambda x=x, c=c: k3.int8_matmul_cuda(x, q, s, c), 200)
+            k3_dev[m, c] = graph_ms(lambda x=x, c=c: k3.int8_matmul_cuda(x, q, s, c))
+    plain_ms = {c: cuda_ms(lambda c=c: int8_matmul_plain(x8, q, s, c), 50) for c in ("f32", "bf16")}
+    linear_ms = cuda_ms(lambda: F.linear(x8, w32), 200)
+    linear_dev = graph_ms(lambda: F.linear(x8, w32))
+    k3_again = graph_ms(lambda: k3.int8_matmul_cuda(x8, q, s, "f32"))
+    try:
+        qt, sb, xb = q.t().contiguous(), s.bfloat16(), x8.bfloat16()
+        lib_out = torch._weight_int8pack_mm(xb, qt, sb)
+        lib_err = float((lib_out.float() - int8_matmul_plain(x8, q, s, "bf16")).abs().max())
+        lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(xb, qt, sb), 200)
+        lib_line = f"torch._weight_int8pack_mm bf16 {fmt(lib_ms)} (vs plain bf16 max abs err {lib_err:.3g})"
+    except Exception as exc:  # no CUDA kernel in this torch: no library yardstick
+        lib_ms, lib_line = None, f"torch._weight_int8pack_mm: {type(exc).__name__}"
+    m, k, n = x8.shape[0], q.shape[0], q.shape[1]
+    k3_bound = card_bound(m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * k * n, F32_OPS_PER_S)
+    print(
+        f"phase 20 K3 (8, 25088, 512) per call (bound {k3_bound[0] * 1e3:.2f} us by {k3_bound[1]}): on the "
+        f"device (graph replay) f32 {fmt(k3_dev[8, 'f32'])}, bf16 {fmt(k3_dev[8, 'bf16'])}, f32 again "
+        f"{fmt(k3_again)}; from Python f32 {fmt(k3_ms[8, 'f32'])}, bf16 {fmt(k3_ms[8, 'bf16'])}; plain f32 "
+        f"{fmt(plain_ms['f32'])}, bf16 {fmt(plain_ms['bf16'])}; {lib_line} {card}"
+    )
+    print(
+        f"phase 20 K3 (1, 25088, 512) per call: on the device f32 {fmt(k3_dev[1, 'f32'])}, bf16 "
+        f"{fmt(k3_dev[1, 'bf16'])}; from Python f32 {fmt(k3_ms[1, 'f32'])}, bf16 {fmt(k3_ms[1, 'bf16'])} {card}"
+    )
+    print(
+        f"phase 20 float fc F.linear (8, 25088) x (512, 25088) f32 (4x K3's weight bytes): on the device "
+        f"{fmt(linear_dev)}; from Python {fmt(linear_ms)} {card}"
+    )
+    for label, fe in (("float", fe32), ("int8", fe8)):
+        for b in (BATCH, 1):
+            batch = crops[:b]
+            fe(batch)
+            t = cuda_ms(lambda: fe(batch), 10)
+            print(f"phase 20 FaceExtraction {label} b{b}: {fmt(t)}/call, {b * 1000 / t[0]:.1f} img/s {card}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fe(crops[:BATCH])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        print(
+            f"phase 20 FaceExtraction {label}: weights {quantized_bytes(fe.model)} bytes resident; one b8 call "
+            f"peaks {peak} bytes allocated, {peak - base} above the bytes held before it"
+        )
+    fq, fqa, fas = stages["cuda"]
+    fas_ms = cuda_ms(lambda: fas(fas_imgs, fas_boxes), 5)
+    fq_ms = cuda_ms(lambda: fq(crops[:BATCH]), 10)
+    fqa_ms = cuda_ms(lambda: fqa(crops[:BATCH]), 10)
+    print(f"phase 20 FaceAntiSpoofing b{len(fas_pairs)} (4 MiniFASNets): {fmt(fas_ms)}/call {card}")
+    print(f"phase 20 FaceQuality b8: {fmt(fq_ms)}/call; FaceQualityAssessment b8: {fmt(fqa_ms)}/call {card}")
+    return {
+        "counts": counts,
+        "k3": {
+            "name": "int8_matmul",
+            "route": "cuda",
+            "source": "rs_face_detection_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "rs_face_detection_tpu/ops/quantize.py:210",
+            "max_abs_err": k3_err,
+            "ms": k3_dev[8, "f32"][0],
+            "plain_ms": plain_ms["f32"][0],
+            "bound_ms": k3_bound[0],
+            "bound_by": k3_bound[1],
+            "library_ms": None if lib_ms is None else lib_ms[0],
+        },
+    }
+
+
 def main() -> int:
     import torch
 
@@ -479,7 +739,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ("nms", "stem", "attention")
+    sources = ("nms", "stem", "attention", "int8_matmul")
     with ThreadPoolExecutor(max_workers=len(sources)) as pool:
         list(pool.map(build.build, sources))
     report = []
@@ -815,6 +1075,10 @@ def main() -> int:
     )
     ekyc = ekyc_phases(dev, rng, face, card)
     by_path["ekyc"] = ekyc["counts"]
+    fas_pairs = [(f, r.selected_face_box) for f, r in zip(frames, flat) if r.selected_face_box is not None]
+    check(len(fas_pairs) > 0, "phase 5 selected no face for the anti-spoofing phase")
+    int8 = int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs[:BATCH])
+    by_path["int8_extract"] = int8["counts"]
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")
@@ -859,6 +1123,7 @@ def main() -> int:
             "library_ms": None,
         },
         ekyc["k4"],
+        int8["k3"],
     ]
     for entry in entries:  # launches as counted on each main path's run
         entry["launches_by_path"] = {path: counts[entry["name"]] for path, counts in by_path.items()}

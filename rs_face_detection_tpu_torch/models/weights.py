@@ -23,6 +23,12 @@ whose entries are copied here so that no JAX module is imported:
 with the distributions of flax's default initializers (the bits differ), for
 machines that hold no checkpoint and no JAX.
 
+A weight-only int8 tree (``FaceExtraction(quantized=True).variables``,
+whose quantized kernels are ``.../kernel/::q`` int8 and ``.../kernel/::s``
+leaves) bridges to the int8 modules of models/quantized.py: the same layout
+maps move q (HWIO -> OIHW; ``fc``'s NHWC rows to NCHW, kept as (K, N)), s
+stays one f32 per output channel, and int8 stays int8.
+
 ``state_dict_from_biubug6`` loads a public biubug6 ``Resnet50_Final.pth``
 state_dict into the port's RetinaFace-R50: the keys are already the port's,
 and the 7x7/s2 stem converts exactly to the s2d form
@@ -41,6 +47,14 @@ import torch.nn as nn
 
 from .arcface import FC_GRID, STAGES, IResNet
 from .classifiers import ResNet18Classifier
+from .minifas import (
+    MiniFASNet,
+    MiniFASNetSpec,
+    default_minifas_spec,
+    minifasnet_map,
+    minifasnet_spec_from_state_dict,
+)
+from .quantized import quantize_module
 from .resnet import STAGES as RESNET50_STAGES
 from .resnet import stem_to_s2d
 from .retinaface import RetinaFace
@@ -55,6 +69,7 @@ FAMILIES = (
     *STAGES,
     "resnet18_classifier",
     "scrfd",
+    "minifasnet",
     *VIT_CONFIGS,
 )
 #: RetinaFace families and their backbone.
@@ -221,7 +236,12 @@ def vit_map(config: str) -> Dict[str, Tuple]:
     return m
 
 
-def mapping_for(family: str) -> Dict[str, Tuple]:
+def mapping_for(family: str, spec: MiniFASNetSpec | None = None) -> Dict[str, Tuple]:
+    """A family's map; a MiniFASNet's depends on its ``spec``."""
+    if family == "minifasnet":
+        if spec is None:
+            raise ValueError("the minifasnet map needs the network's spec")
+        return minifasnet_map(spec)
     if family == "scrfd":
         return scrfd_map()
     if family in VIT_CONFIGS:
@@ -241,7 +261,7 @@ def leaves_of(path: str, kind: str) -> Tuple[str, ...]:
     """The flax leaves one map entry reads, in the order state_dict_from_jax
     takes them: the loader reads every leaf through this function, so it
     and the coverage of ``mapped_leaves`` cannot disagree."""
-    if kind in ("conv", "raw", "flat", "squeeze0"):
+    if kind in ("conv", "raw", "flat", "squeeze0", "dense_nobias"):
         return (path,)
     if kind in ("conv_bias", "dense", "dense_nchw"):
         return (f"{path}/kernel", f"{path}/bias")
@@ -269,11 +289,18 @@ def mapped_leaves(family: str) -> set:
     }
 
 
-def build_model(family: str, num_outputs: int = 4, image_size: int = 224) -> nn.Module:
+def build_model(
+    family: str, num_outputs: int = 4, image_size: int = 224, softmax: bool = True
+) -> nn.Module:
     """The port's module for a family, in eval mode, on the CPU (a ViT for
-    ``image_size`` square inputs; SCRFD at width 32, neck 32)."""
+    ``image_size`` square inputs; SCRFD at width 32, neck 32; a MiniFASNet of
+    ``default_minifas_spec`` at ``image_size``).  ``softmax`` applies to the
+    ResNet-18 classifier and the MiniFASNet."""
     if family == "scrfd":
         model = SCRFD()
+    elif family == "minifasnet":
+        spec = default_minifas_spec((image_size, image_size), num_classes=num_outputs)
+        model = MiniFASNet(spec, softmax)
     elif family in VIT_CONFIGS:
         model = ViT(family, num_outputs, image_size)
     elif family in RETINAFACE:
@@ -281,7 +308,7 @@ def build_model(family: str, num_outputs: int = 4, image_size: int = 224) -> nn.
     elif family in STAGES:
         model = IResNet(family)
     elif family == "resnet18_classifier":
-        model = ResNet18Classifier(num_outputs)
+        model = ResNet18Classifier(num_outputs, softmax)
     else:
         raise ValueError(f"unknown family {family!r} (one of {FAMILIES})")
     return model.eval()
@@ -312,35 +339,65 @@ def _tensor(x: np.ndarray) -> torch.Tensor:
     return torch.tensor(np.asarray(x, dtype=np.float32))
 
 
-def state_dict_from_jax(family: str, source: Any) -> Dict[str, torch.Tensor]:
-    """The port's state_dict for a family from JAX variables or an .npz.
+def _kernel(sd: Dict[str, torch.Tensor], key: str, kernel, to_torch) -> None:
+    """A float kernel as ``key.weight`` = to_torch(kernel); a quantized one,
+    a (q, s) pair, as ``key.weight_q`` (int8, the same map) and
+    ``key.weight_scale`` (f32, one per output channel)."""
+    if isinstance(kernel, tuple):
+        q, s = kernel
+        sd[f"{key}.weight_q"] = torch.from_numpy(np.ascontiguousarray(to_torch(np.asarray(q, np.int8))))
+        sd[f"{key}.weight_scale"] = _tensor(s.reshape(-1))
+    else:
+        sd[f"{key}.weight"] = _tensor(to_torch(kernel))
+
+
+def _hwio_to_oihw(k: np.ndarray) -> np.ndarray:
+    return k.transpose(3, 2, 0, 1)
+
+
+def state_dict_from_jax(
+    family: str, source: Any, spec: MiniFASNetSpec | None = None
+) -> Dict[str, torch.Tensor]:
+    """The port's state_dict for a family from JAX variables or an .npz
+    (``spec``: a MiniFASNet's architecture).  A quantized kernel gives the
+    int8 modules' ``weight_q``/``weight_scale``.
 
     Raises if a JAX leaf goes unused, so a layout drift cannot pass silently.
     """
     flat = flat_variables(source)
+    quant = {
+        name[: -len("/::q")]: (flat.pop(name), flat.pop(name[: -len("/::q")] + "/::s"))
+        for name in [n for n in flat if n.endswith("/::q")]
+    }
     used = set()
     sd: Dict[str, torch.Tensor] = {}
-    for path, spec in mapping_for(family).items():
-        key, kind = spec[0], spec[1]
+    for path, entry in mapping_for(family, spec).items():
+        key, kind = entry[0], entry[1]
         names = leaves_of(path, kind)
         used.update(names)
-        leaves = [flat[name] for name in names]
+        leaves = [quant[name] if name in quant else flat[name] for name in names]
         if kind == "conv":
-            sd[f"{key}.weight"] = _tensor(leaves[0].transpose(3, 2, 0, 1))
+            _kernel(sd, key, leaves[0], _hwio_to_oihw)
         elif kind == "conv_bias":
             kernel, bias = leaves
-            sd[f"{key}.weight"] = _tensor(kernel.transpose(3, 2, 0, 1))
+            _kernel(sd, key, kernel, _hwio_to_oihw)
             sd[f"{key}.bias"] = _tensor(bias)
         elif kind == "dense":
             kernel, bias = leaves
             sd[f"{key}.weight"] = _tensor(kernel.T)
             sd[f"{key}.bias"] = _tensor(bias)
+        elif kind == "dense_nobias":
+            sd[f"{key}.weight"] = _tensor(leaves[0].T)
         elif kind == "dense_nchw":
-            c, h, w = spec[2]
+            c, h, w = entry[2]
             kernel, bias = leaves  # kernel (h*w*c, out): rows in NHWC order
-            out_f = kernel.shape[1]
-            weight = kernel.T.reshape(out_f, h, w, c).transpose(0, 3, 1, 2)
-            sd[f"{key}.weight"] = _tensor(weight.reshape(out_f, c * h * w))
+            if isinstance(kernel, tuple):  # int8: (K, N) with the rows in NCHW order
+                rows = lambda k: k.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1)  # noqa: E731
+                _kernel(sd, key, kernel, rows)
+            else:
+                out_f = kernel.shape[1]
+                weight = kernel.T.reshape(out_f, h, w, c).transpose(0, 3, 1, 2)
+                sd[f"{key}.weight"] = _tensor(weight.reshape(out_f, c * h * w))
             sd[f"{key}.bias"] = _tensor(bias)
         elif kind == "bn":
             for suffix, leaf in zip(("weight", "bias", "running_mean", "running_var"), leaves):
@@ -365,21 +422,23 @@ def state_dict_from_jax(family: str, source: Any) -> Dict[str, torch.Tensor]:
             sd[f"{key}.in_proj_bias"] = _tensor(np.concatenate([b.reshape(-1) for b in (qb, kb, vb)]))
             sd[f"{key}.out_proj.weight"] = _tensor(out.reshape(-1, out.shape[-1]).T)
             sd[f"{key}.out_proj.bias"] = _tensor(out_bias)
-    unused = sorted(set(flat) - used)
+    unused = sorted((set(flat) | set(quant)) - used)
     if unused:
         raise ValueError(f"{family}: JAX leaves not mapped: {unused[:8]}")
     return sd
 
 
-def init_state(family: str, seed: int, num_outputs: int = 4) -> Dict[str, torch.Tensor]:
+def init_state(
+    family: str, seed: int, num_outputs: int = 4, image_size: int = 224
+) -> Dict[str, torch.Tensor]:
     """Seeded full-width state_dict: conv and linear weights N(0, 1/fan_in),
     biases 0, BatchNorm identity (weight 1, bias 0, mean 0, var 1), Group-
     and LayerNorm weight 1 and bias 0, PReLU slopes 0.25, a ViT's packed qkv
     and ``proj`` N(0, 1/fan_in) and its CLS token and position embedding
     N(0, 0.02^2) -- flax's default initializers and the ViT's own, drawn
-    from numpy."""
+    from numpy.  ``image_size``: a ViT's or a MiniFASNet's input size."""
     rng = np.random.default_rng(seed)
-    model = build_model(family, num_outputs)
+    model = build_model(family, num_outputs, image_size)
     sd: Dict[str, torch.Tensor] = {}
 
     def normal(shape, fan_in: int) -> torch.Tensor:
@@ -421,14 +480,19 @@ def init_state(family: str, seed: int, num_outputs: int = 4) -> Dict[str, torch.
     return sd
 
 
-def load_model(family: str, state_dict: Dict[str, torch.Tensor]) -> nn.Module:
+def load_model(family: str, state_dict: Dict[str, torch.Tensor], softmax: bool = True) -> nn.Module:
     """Build a family's module and load a complete state_dict into it.
 
     A classifier takes its number of outputs from ``fc.weight``, a ViT from
     ``head.weight`` and its input size from ``positional_embedding``, SCRFD
-    its backbone and neck widths from its first convs.
+    its backbone and neck widths from its first convs, a MiniFASNet its whole
+    architecture from the shapes.  A state_dict with ``weight_q`` leaves (a
+    bridged int8 tree) loads into the int8 form of the module.  ``softmax``
+    applies to the ResNet-18 classifier and the MiniFASNet.
     """
-    if family == "scrfd":
+    if family == "minifasnet":
+        model = MiniFASNet(minifasnet_spec_from_state_dict(state_dict), softmax).eval()
+    elif family == "scrfd":
         width = int(state_dict["stem1.0.weight"].shape[0])
         model = SCRFD(width, int(state_dict["neck.lat0.0.weight"].shape[0])).eval()
     elif family in VIT_CONFIGS:
@@ -439,7 +503,9 @@ def load_model(family: str, state_dict: Dict[str, torch.Tensor]) -> nn.Module:
         num_outputs = 4
         if family == "resnet18_classifier":
             num_outputs = int(state_dict["fc.weight"].shape[0])
-        model = build_model(family, num_outputs)
+        model = build_model(family, num_outputs, softmax=softmax)
+    if any(k.endswith(".weight_q") for k in state_dict):
+        quantize_module(model)
     model.load_state_dict(state_dict, strict=True)
     return model
 

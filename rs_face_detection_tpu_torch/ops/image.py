@@ -208,6 +208,18 @@ def normalize(
     return (img - mean_t) * scale_t
 
 
+def crops_to_nchw(
+    imgs_bgr: Sequence[np.ndarray], size: Tuple[int, int], mean, scale, device: torch.device
+) -> torch.Tensor:
+    """A staged head's input: same-shaped (h, w, 3) BGR crops -> resize to
+    ``size`` (w, h) -> BGR->RGB -> (px - mean) * scale, as a float32 NCHW
+    batch on ``device`` (the JAX modules' order of the three steps)."""
+    out_w, out_h = size
+    x = torch.from_numpy(np.stack(imgs_bgr)).to(device).float()
+    x = normalize(bgr_to_rgb(resize_bilinear(x, out_h, out_w)), mean, scale)
+    return x.permute(0, 3, 1, 2).contiguous()
+
+
 def warp_affine(
     imgs: torch.Tensor, matrices: torch.Tensor, out_h: int, out_w: int
 ) -> torch.Tensor:
@@ -276,10 +288,20 @@ def crop_resize(
 ) -> torch.Tensor:
     """Crop an (H, W, C) float image to an inclusive-corner (4,) box and
     resize it to (out_h, out_w, C) with half-pixel bilinear sampling."""
-    x1, y1, x2, y2 = box_xyxy.unbind()
+    return crop_resize_batch(img[None], box_xyxy[None], out_h, out_w)[0]
+
+
+def crop_resize_batch(
+    imgs: torch.Tensor, boxes_xyxy: torch.Tensor, out_h: int, out_w: int
+) -> torch.Tensor:
+    """crop_resize of each (H, W, C) float image of a batch by its own
+    inclusive-corner box: (B, H, W, C) and (B, 4) -> (B, out_h, out_w, C),
+    the same f32 arithmetic per image (JAX vmaps crop_resize)."""
+    x1, y1, x2, y2 = (t[:, None] for t in boxes_xyxy.unbind(1))
     sx = (x2 - x1 + 1.0) / out_w
     sy = (y2 - y1 + 1.0) / out_h
-    xs = (torch.arange(out_w, dtype=img.dtype, device=img.device) + 0.5) * sx - 0.5 + x1
-    ys = (torch.arange(out_h, dtype=img.dtype, device=img.device) + 0.5) * sy - 0.5 + y1
-    grid_y, grid_x = torch.meshgrid(ys, xs, indexing="ij")
-    return _bilinear_sample(img[None], grid_x[None], grid_y[None])[0]
+    xs = (torch.arange(out_w, dtype=imgs.dtype, device=imgs.device) + 0.5) * sx - 0.5 + x1
+    ys = (torch.arange(out_h, dtype=imgs.dtype, device=imgs.device) + 0.5) * sy - 0.5 + y1
+    grid_x = xs[:, None, :].expand(-1, out_h, -1)
+    grid_y = ys[:, :, None].expand(-1, -1, out_w)
+    return _bilinear_sample(imgs, grid_x, grid_y)

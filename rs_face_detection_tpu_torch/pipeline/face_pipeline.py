@@ -4,8 +4,9 @@ Counterpart of rs_face_detection_tpu/pipeline/face_pipeline.py: decode,
 detect, select one face, align it, classify its quality and extract a 512-d
 L2-normalized embedding, returned as a ``FaceExtractionResult`` with the same
 schema.  A request costs two device passes: detect, then one fused tail of
-warp + quality head + embedding head.  The heads' input normalisation (from
-the JAX package's pipeline/quality.py and pipeline/extraction.py) lives here.
+warp + quality head + embedding head.  The heads' input normalisation and
+the quality demotion come from the staged modules (pipeline/quality.py and
+pipeline/extraction.py), as in the JAX package.
 
 Models come from a table keyed by the JAX registry's names
 (``face_detection_retina``, ``face_quality``, ``face_identification``);
@@ -29,24 +30,9 @@ from ..utils.device import DeviceLike, resolve_device, to_device
 from ..utils.image_io import decode_image_bytes
 from .alignment import FaceAlignment
 from .detection import RetinaFaceDetection
+from .extraction import EMBED_MEAN, EMBED_SCALE, l2_normalize
+from .quality import QUALITY_MEAN, QUALITY_SCALE, demote_quality
 from .selection import FaceSelection
-
-#: Quality head input: ImageNet mean and 1/std on 0-255 RGB.
-QUALITY_MEAN = (123.675, 116.28, 103.53)
-QUALITY_SCALE = (0.01712475, 0.017507, 0.01742919)
-#: ArcFace input: (px - 127.5) * 0.0078125.
-EMBED_MEAN = (127.5, 127.5, 127.5)
-EMBED_SCALE = (0.0078125, 0.0078125, 0.0078125)
-
-
-def demote_quality(probs: np.ndarray, threshold: float) -> Tuple[int, float]:
-    """Argmax class; class 1 (Good) below `threshold` demotes to class 0
-    (Bad) and reports class 0's probability."""
-    predict = int(np.argmax(probs))
-    score = float(probs[predict])
-    if predict == 1 and score < threshold:
-        predict, score = 0, float(probs[0])
-    return predict, score
 
 
 def default_models(config: FacePipelineConfig, names: Sequence[str]) -> Dict[str, nn.Module]:
@@ -114,8 +100,7 @@ class FacePipeline:
         with torch.no_grad():
             probs = self.quality_model(q_in.permute(0, 3, 1, 2).contiguous())
             emb = self.embedding_model(e_in.permute(0, 3, 1, 2).contiguous())
-        emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
-        return probs, emb
+        return probs, l2_normalize(emb)
 
     def _fill(self, result: FaceExtractionResult, probs: np.ndarray, emb: np.ndarray) -> None:
         predict, score = demote_quality(probs, self.config.quality.threshold)

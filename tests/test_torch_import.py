@@ -36,9 +36,11 @@ def test_port_imports_without_jax():
     assert report["reference"] == [], "the port imported the JAX package"
     for name in (
         "configs", "kernels.build", "kernels.nms", "kernels.stem", "kernels.attention",
-        "ops.nms", "ops.image", "ops.stem", "ops.attention", "models.resnet",
-        "models.retinaface", "models.scrfd", "models.vit", "models.weights",
-        "pipeline.detection", "pipeline.face_pipeline", "pipeline.ekyc_pipeline",
+        "kernels.int8_matmul", "ops.nms", "ops.image", "ops.stem", "ops.attention",
+        "ops.quantize", "models.resnet", "models.retinaface", "models.scrfd", "models.vit",
+        "models.minifas", "models.quantized", "models.weights", "pipeline.detection",
+        "pipeline.face_pipeline", "pipeline.ekyc_pipeline", "pipeline.extraction",
+        "pipeline.quality", "pipeline.quality_assessment", "pipeline.antispoofing",
         "serving.detection_server", "utils.image_io",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]
@@ -46,20 +48,35 @@ def test_port_imports_without_jax():
 
 @pytest.mark.parametrize(
     "entry",
-    ["RetinaFaceDetection", "FacePipeline", "SCRFDDetection", "EKYCPipeline"],
+    [
+        "RetinaFaceDetection", "FacePipeline", "SCRFDDetection", "EKYCPipeline",
+        "FaceExtraction", "FaceQuality", "FaceQualityAssessment", "FaceAntiSpoofing",
+    ],
 )
 def test_entry_points_default_to_the_card(entry):
     """Built without a device on a host without CUDA, an entry point raises
     before it builds a model: nothing carries on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid here")
-    from rs_face_detection_tpu_torch.pipeline import detection, ekyc_pipeline, face_pipeline
+    from rs_face_detection_tpu_torch.pipeline import (
+        antispoofing,
+        detection,
+        ekyc_pipeline,
+        extraction,
+        face_pipeline,
+        quality,
+        quality_assessment,
+    )
 
     cls = {
         "RetinaFaceDetection": detection.RetinaFaceDetection,
         "FacePipeline": face_pipeline.FacePipeline,
         "SCRFDDetection": ekyc_pipeline.SCRFDDetection,
         "EKYCPipeline": ekyc_pipeline.EKYCPipeline,
+        "FaceExtraction": extraction.FaceExtraction,
+        "FaceQuality": quality.FaceQuality,
+        "FaceQualityAssessment": quality_assessment.FaceQualityAssessment,
+        "FaceAntiSpoofing": antispoofing.FaceAntiSpoofing,
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls()
