@@ -23,11 +23,13 @@ and the last line is never printed):
      K4's stay 0; the first request is held against the port's CPU
      pipeline;
   6. timings with CUDA events after a warm-up: the median, min and max over
-     five windows of back-to-back calls, with TF32 off;
+     five windows of back-to-back calls, with TF32 off; K1 also on the
+     device alone (20 calls replayed from a CUDA graph);
   7. K2 vs plain: the fused ResNet-50 stem kernel against fused_stem_plain
-     on letterboxed (8, 640, 640) canvases, on (2, 72, 96) frames and on
-     all-0 and all-255 canvases, with the config's pixel normalization and
-     with ImageNet's (a nonzero mean, so the border zeroing shows);
+     on letterboxed (8, 640, 640) canvases, on (2, 72, 96), (3, 70, 34) and
+     (1, 2, 2) frames (partial tiles at every edge) and on all-0 and all-255
+     canvases, with the config's pixel normalization and with ImageNet's (a
+     nonzero mean, so the border zeroing shows);
   8. R50 detector parity: RetinaFace-ResNet50 at 640 on seeded full-width
      weights, batch 2, the fused-stem path on the card (K2) against the
      port's CPU path (TF32 off);
@@ -37,12 +39,15 @@ and the last line is never printed):
      first request is held against the port's CPU pipeline;
  10. DetectionServer: detect_batch and detect_stream over 3 batches of 8 on
      the R50 detector, each image equal to detect_batch called directly;
- 11. R50 timings as in phase 6: detect b8, extract_batch b8, K2 and the
-     plain stem per call at (8, 640, 640), detect_stream img/s;
+ 11. R50 timings as in phase 6: detect b8, extract_batch b8, K2 per call at
+     (8, 640, 640) on the device (graph replay) and from Python beside its
+     bound (two TF32 products per multiply-add), the plain stem,
+     detect_stream img/s;
  12. K4 vs plain: the flash-attention kernel against attention_plain in
      bf16 and f32, on strided qkv views at (8, 257, 16, 64), at the
-     verify's (1, 257, 16, 64) and on (2, 17, 2, 32), (1, 1, 16, 64) and
-     (3, 197, 12, 64);
+     verify's (1, 257, 16, 64) and on (2, 17, 2, 32), (1, 1, 16, 64),
+     (3, 197, 12, 64), (1, 600, 2, 64) and (8, 600, 16, 64) (K/V streamed
+     through the ring, the latter over three rounds of warps);
  13. ViT parity: the full-width clip_l14 tower on seeded weights, batch 2,
      in f32 on the card (24 K4 launches) against the port's CPU path;
  14. SCRFD parity: the full-width SCRFD at 640, batch 2, maps on the card
@@ -56,7 +61,8 @@ and the last line is never printed):
  16. eKYC timings: verify per pair, one ViT-L/14 tower at b8 in bf16,
      SCRFD detect_batch b8, K4 per launch at (8, 257, 16, 64) bf16 against
      its plain version and F.scaled_dot_product_attention (the library
-     yardstick; the port never calls it);
+     yardstick; the port never calls it), both on the device (graph replay)
+     and from Python, and on the device at the verify's (1, 257, 16, 64);
  17. K3 vs plain: the int8 dequant-matmul against int8_matmul_plain in f32
      and bf16 arithmetic at the fc's (8, 25088, 512) and (1, 25088, 512), at
      (3, 1000, 96) and (5, 4095, 130), and at M = 0 (no launch); the port's
@@ -79,7 +85,8 @@ and the last line is never printed):
      FaceExtraction b8 and b1 float against int8, the weight bytes and the
      peak device memory of one call of each; FaceAntiSpoofing, FaceQuality
      and FaceQualityAssessment at b8;
-then a JSON line of the kernels, with each one's bound on the card, and
+then a JSON line of the kernels, with each one's bound on the card, its
+time on the device as ``ms`` and from Python as ``python_ms``, and
 {"ok": true, "device": ...} last.
 Every count a phase checks is set to 0 just before its path runs.  The
 four main paths (phases 5, 9, 15 and 18) set all four kernels' counts to 0
@@ -206,9 +213,10 @@ def fmt(t):
 
 
 #: Published peaks of one H100 SXM at 700 W: memory rate, f32 rate outside
-#: the tensor cores, dense bf16 tensor-core rate.
+#: the tensor cores, dense TF32 and bf16 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 BF16_OPS_PER_S = 989e12
 
 
@@ -282,7 +290,10 @@ def ekyc_phases(dev, rng, face, card):
     k4_err, k4_lines = 0.0, []
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
         # (1, 257, 16, 64) is what each tower of a verify gives K4.
-        for shape in ((8, 257, 16, 64), (1, 257, 16, 64), (2, 17, 2, 32), (1, 1, 16, 64), (3, 197, 12, 64)):
+        # (1, 600, 2, 64): more keys than the 8 stages hold, so K/V stream;
+        # (8, 600, 16, 64) streams them again in each of three rounds.
+        for shape in ((8, 257, 16, 64), (1, 257, 16, 64), (2, 17, 2, 32), (1, 1, 16, 64), (3, 197, 12, 64),
+                      (1, 600, 2, 64), (8, 600, 16, 64)):
             b, n, h, d = shape
             qkv = torch.from_numpy(rng.normal(size=(b, n, 3, h, d)).astype(np.float32)).to(dev, dtype)
             q, k, v = qkv.unbind(2)  # strided views of the packed tensor
@@ -456,10 +467,21 @@ def ekyc_phases(dev, rng, face, card):
     for _ in range(5):
         katt.flash_attention_cuda(q, k, v)
         F.scaled_dot_product_attention(qt, kt, vt)
+    # On the device (20 calls replayed from a CUDA graph) and from Python,
+    # where the wrapper's host time adds in: K4, SDPA, K4, SDPA.
+    k4_dev = graph_ms(lambda: katt.flash_attention_cuda(q, k, v))
+    sdpa_dev = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
     k4_ms = cuda_ms(lambda: katt.flash_attention_cuda(q, k, v), 200)
     k4_plain_ms = cuda_ms(lambda: attention_plain(q, k, v), 20)
     sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 200)
     k4_ms2 = cuda_ms(lambda: katt.flash_attention_cuda(q, k, v), 200)
+    k4_dev2 = graph_ms(lambda: katt.flash_attention_cuda(q, k, v))
+    sdpa_dev2 = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+    # The verify's shape, on the device.
+    qs, ks, vs = (t[:1] for t in (q, k, v))
+    qst, kst, vst = (t.transpose(1, 2) for t in (qs, ks, vs))
+    k4_dev_b1 = graph_ms(lambda: katt.flash_attention_cuda(qs, ks, vs))
+    sdpa_dev_b1 = graph_ms(lambda: F.scaled_dot_product_attention(qst, kst, vst))
     sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2).float()
                       - katt.flash_attention_cuda(q, k, v).float()).abs().max())
     print(
@@ -472,9 +494,14 @@ def ekyc_phases(dev, rng, face, card):
     k4_bound = card_bound(4 * b * n * h * d * 2, 4 * b * h * n * n * d, BF16_OPS_PER_S)
     print(
         f"phase 16 attention (8, 257, 16, 64) bf16 per call (bound {k4_bound[0] * 1e3:.2f} us by "
-        f"{k4_bound[1]}): K4 {fmt(k4_ms)}, plain {fmt(k4_plain_ms)}, "
-        f"scaled_dot_product_attention {fmt(sdpa_ms)}, K4 again {fmt(k4_ms2)}; K4 vs SDPA max abs err "
+        f"{k4_bound[1]}): on the device (graph replay) K4 {fmt(k4_dev)}, scaled_dot_product_attention "
+        f"{fmt(sdpa_dev)}, K4 again {fmt(k4_dev2)}, SDPA again {fmt(sdpa_dev2)}; from Python K4 {fmt(k4_ms)}, "
+        f"plain {fmt(k4_plain_ms)}, SDPA {fmt(sdpa_ms)}, K4 again {fmt(k4_ms2)}; K4 vs SDPA max abs err "
         f"{sdpa_err:.3g} {card}"
+    )
+    print(
+        f"phase 16 attention (1, 257, 16, 64) bf16 per call on the device: K4 {fmt(k4_dev_b1)}, "
+        f"scaled_dot_product_attention {fmt(sdpa_dev_b1)} {card}"
     )
     return {
         "counts": counts,
@@ -485,11 +512,13 @@ def ekyc_phases(dev, rng, face, card):
             "source": "rs_face_detection_tpu_torch/csrc/attention.cu",
             "replaces": "rs_face_detection_tpu/models/vit.py:35",
             "max_abs_err": k4_err,
-            "ms": k4_ms[0],
+            "ms": k4_dev[0],
+            "python_ms": k4_ms[0],
             "plain_ms": k4_plain_ms[0],
             "bound_ms": k4_bound[0],
             "bound_by": k4_bound[1],
-            "library_ms": sdpa_ms[0],
+            "library_ms": sdpa_dev[0],
+            "library_python_ms": sdpa_ms[0],
         },
     }
 
@@ -691,6 +720,7 @@ def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs):
             "replaces": "rs_face_detection_tpu/ops/quantize.py:210",
             "max_abs_err": k3_err,
             "ms": k3_dev[8, "f32"][0],
+            "python_ms": k3_ms[8, "f32"][0],
             "plain_ms": plain_ms["f32"][0],
             "bound_ms": k3_bound[0],
             "bound_by": k3_bound[1],
@@ -881,11 +911,13 @@ def main() -> int:
     det_ms = cuda_ms(lambda: det_gpu.detect_batch(canvas, scales), 20)
     ext_ms = cuda_ms(lambda: pipe.extract_batch(requests[0]), 5)
     b8 = real_cand
+    k_dev = graph_ms(lambda: knms.nms_mask_cuda(b8.boxes, b8.valid, 0.45))
     k_ms = cuda_ms(lambda: knms.nms_mask_cuda(b8.boxes, b8.valid, 0.45), 200)
     p_ms = cuda_ms(lambda: nms_mask_plain(b8.boxes, b8.valid, 0.45), 20)
     print(f"phase 6 detect b8: {fmt(det_ms)}/batch, {BATCH * 1000 / det_ms[0]:.1f} img/s {card}")
     print(f"phase 6 extract_batch b8: {fmt(ext_ms)}/batch, {BATCH * 1000 / ext_ms[0]:.1f} img/s {card}")
-    print(f"phase 6 NMS (B=8, K=128) per call: K1 {fmt(k_ms)}, plain {fmt(p_ms)} {card}")
+    print(f"phase 6 NMS (B=8, K=128) per call: K1 on the device (graph replay) {fmt(k_dev)}, from Python "
+          f"{fmt(k_ms)}; plain {fmt(p_ms)} {card}")
 
     # 7. K2 vs plain (TF32 stays off).  Bound: 1e-5 of the output's
     # magnitude -- 192 f32 products summed in another order.
@@ -907,6 +939,8 @@ def main() -> int:
     k2_cases = {
         "letterboxed (8, 640, 640)": r50_canvas,
         "(2, 72, 96)": torch.from_numpy(wrng.integers(0, 256, (2, 72, 96, 3), dtype=np.uint8)).to(dev),
+        "(3, 70, 34)": torch.from_numpy(wrng.integers(0, 256, (3, 70, 34, 3), dtype=np.uint8)).to(dev),
+        "(1, 2, 2)": torch.from_numpy(wrng.integers(0, 256, (1, 2, 2, 3), dtype=np.uint8)).to(dev),
         "all-0 (1, 640, 640)": torch.zeros((1, height, width, 3), dtype=torch.uint8, device=dev),
         "all-255 (1, 640, 640)": torch.full((1, height, width, 3), 255, dtype=torch.uint8, device=dev),
     }
@@ -1049,9 +1083,13 @@ def main() -> int:
             r50_gpu.detect_batch(r50_canvas, r50_scales)
         r50_det_ms = cuda_ms(lambda: r50_gpu.detect_batch(r50_canvas, r50_scales), 5)
         r50_ext_ms = cuda_ms(lambda: r50_pipe.extract_batch(r50_requests[0]), 3)
+        # K2 on the device (20 calls replayed from a CUDA graph) and from
+        # Python, back to back, where the wrapper's host time adds in.
+        k2_dev = graph_ms(lambda: kstem.fused_stem_cuda(r50_canvas, *k2_consts))
         k2_ms = cuda_ms(lambda: kstem.fused_stem_cuda(r50_canvas, *k2_consts), 20)
         stem_plain_ms = cuda_ms(lambda: fused_stem_plain(r50_canvas, *k2_consts), 20)
         k2_ms2 = cuda_ms(lambda: kstem.fused_stem_cuda(r50_canvas, *k2_consts), 20)
+        k2_dev2 = graph_ms(lambda: kstem.fused_stem_cuda(r50_canvas, *k2_consts))
         stream_s = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -1065,9 +1103,20 @@ def main() -> int:
         f"phase 11 R50 extract_batch b8: {fmt(r50_ext_ms)}/batch, "
         f"{BATCH * 1000 / r50_ext_ms[0]:.1f} img/s {card}"
     )
+    kb, kh, kw = r50_canvas.shape[:3]
+    k2_bytes = r50_canvas.numel() + kb * 64 * ((kh // 2 - 1) // 2 + 1) * ((kw // 2 - 1) // 2 + 1) * 4
+    k2_macs = kb * (kh // 2) * (kw // 2) * 64 * 192  # 192 multiply-adds per conv output
+    # The kernel's arithmetic: two TF32 products per multiply-add (exact
+    # pixel values times the weights split in two halves) on the tensor
+    # cores.  3xTF32 and the f32 FMA pipes are printed beside it.
+    k2_bound = card_bound(k2_bytes, 2 * 2 * k2_macs, TF32_OPS_PER_S)
+    k2_3x_bound = card_bound(k2_bytes, 3 * 2 * k2_macs, TF32_OPS_PER_S)
+    k2_fma_bound = card_bound(k2_bytes, 2 * k2_macs, F32_OPS_PER_S)
     print(
-        f"phase 11 stem (8, 640, 640) per call: K2 {fmt(k2_ms)}, plain {fmt(stem_plain_ms)}, "
-        f"K2 again {fmt(k2_ms2)} {card}"
+        f"phase 11 stem (8, 640, 640) per call (bound {k2_bound[0]:.4f} ms by {k2_bound[1]}, two TF32 products "
+        f"per multiply-add at 495 TFLOP/s; {k2_3x_bound[0]:.4f} ms as 3xTF32, {k2_fma_bound[0]:.4f} ms as f32 "
+        f"FMAs): K2 on the device (graph replay) {fmt(k2_dev)}, "
+        f"again {fmt(k2_dev2)}; from Python {fmt(k2_ms)}, again {fmt(k2_ms2)}; plain {fmt(stem_plain_ms)} {card}"
     )
     print(
         f"phase 11 DetectionServer.detect_stream R50 b8, 3 batches from host frames: "
@@ -1092,10 +1141,6 @@ def main() -> int:
     later_valid = torch.flip(torch.cumsum(torch.flip(b8.valid.int(), [1]), 1), [1]) - b8.valid.int()
     k1_ious = int((later_valid * keep.int()).sum())
     k1_bound = card_bound(b8.boxes.numel() * 4 + 2 * b8.valid.numel(), 15 * k1_ious, F32_OPS_PER_S)
-    # K2 at (8, 640, 640): 192 multiply-adds per conv output, 64 channels.
-    kb, kh, kw = r50_canvas.shape[:3]
-    k2_bytes = r50_canvas.numel() + kb * 64 * ((kh // 2 - 1) // 2 + 1) * ((kw // 2 - 1) // 2 + 1) * 4
-    k2_bound = card_bound(k2_bytes, 2 * kb * (kh // 2) * (kw // 2) * 64 * 192, F32_OPS_PER_S)
 
     entries = [
         {
@@ -1104,7 +1149,8 @@ def main() -> int:
             "source": "rs_face_detection_tpu_torch/csrc/nms.cu",
             "replaces": "rs_face_detection_tpu/ops/nms_pallas.py:110",
             "max_abs_err": max(max_err, ekyc["nms_err"]),
-            "ms": k_ms[0],
+            "ms": k_dev[0],
+            "python_ms": k_ms[0],
             "plain_ms": p_ms[0],
             "bound_ms": k1_bound[0],
             "bound_by": k1_bound[1],
@@ -1116,10 +1162,14 @@ def main() -> int:
             "source": "rs_face_detection_tpu_torch/csrc/stem.cu",
             "replaces": "rs_face_detection_tpu/ops/stem_pallas.py:214",
             "max_abs_err": k2_err,
-            "ms": k2_ms[0],
+            "ms": k2_dev[0],
+            "python_ms": k2_ms[0],
             "plain_ms": stem_plain_ms[0],
             "bound_ms": k2_bound[0],
             "bound_by": k2_bound[1],
+            "bound_basis": "2 TF32 tensor-core products per multiply-add at 495 TFLOP/s",
+            "tf32x3_bound_ms": k2_3x_bound[0],
+            "f32_fma_bound_ms": k2_fma_bound[0],
             "library_ms": None,
         },
         ekyc["k4"],

@@ -10,6 +10,8 @@ checks its inputs and raises on anything the kernel does not take.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
@@ -21,6 +23,49 @@ launches = 0
 #: Head dims the kernel is instantiated for.
 HEAD_DIMS = (32, 64)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: bf16 path: query rows per fragment (one warp's share of a round), keys
+#: per cp.async stage, stages and warps per CTA at most, and the shared
+#: memory a CTA may ask for (csrc/attention.cu's 16, kStageKeys,
+#: kMaxStages, kMaxWarps; the H100's 227 KB).
+FRAG_ROWS, STAGE_KEYS, MAX_STAGES, MAX_WARPS = 16, 64, 8, 8
+SMEM_LIMIT = 232448
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(b: int, n: int, h: int, sms: int) -> Tuple[int, int, int]:
+    """(splits, warps, stages) of the bf16 kernel at (b, n, h) on ``sms``
+    multiprocessors.
+
+    A head's F = ceil(n / 16) query fragments are split evenly over
+    ``splits`` CTAs (CTA s takes [s * F // splits, (s + 1) * F // splits)) so
+    that the b * h heads give about two CTAs per SM (two fit by shared
+    memory up to 320 keys at D = 64), but no CTA takes fewer than two
+    fragments, since each reads the head's whole K and V: the tower's b8
+    gives 128 heads of 2 CTAs, a verify's b1 16 heads of 8.  ``warps`` is
+    the fewest warps that walk a CTA's largest share in the fewest rounds of
+    at most 8 warps, each warp one fragment a round.  ``stages`` is the
+    number of 64-key K/V stages kept in shared memory: the whole head up to
+    8 stages (512 keys), else a ring of 8 that streams.
+    """
+    frags = -(-n // FRAG_ROWS)
+    splits = max(1, min(frags // 2, 2 * sms // (b * h)))
+    per = -(-frags // splits)
+    rounds = -(-per // MAX_WARPS)
+    warps = -(-per // rounds)
+    stages = min(-(-n // STAGE_KEYS), MAX_STAGES)
+    return splits, warps, stages
+
+
+def smem_bytes(d: int, stages: int) -> int:
+    """Dynamic shared memory of the bf16 kernel: K and V stages of 64 rows
+    padded by 8 elements."""
+    return 2 * stages * STAGE_KEYS * (d + 8) * 2
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _lib() -> ctypes.CDLL:
@@ -39,6 +84,9 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_int,  # D
             ctypes.c_int,  # dtype
             *([ctypes.c_longlong] * 9),  # q, k, v strides of B, N, H
+            ctypes.c_int,  # splits
+            ctypes.c_int,  # warps
+            ctypes.c_int,  # stages
             ctypes.c_void_p,  # stream
         ]
     return lib
@@ -79,6 +127,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     out = torch.empty((b, n, h, d), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    splits, warps, stages = launch_plan(b, n, h, _sm_count(q.device.index))
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -95,6 +144,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
             *q.stride()[:3],
             *k.stride()[:3],
             *v.stride()[:3],
+            splits,
+            warps,
+            stages,
             stream,
         )
     if err != 0:

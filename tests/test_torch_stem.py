@@ -10,24 +10,32 @@ path.  Required, in f32 on the CPU:
     interpret mode on tests/test_stem_pallas.py's shapes, and the XLA chain
     on a shape the Pallas kernel refuses, within that file's rtol 1e-5,
     atol 1e-4 (the conv sums 192 products in another order);
-  - the s2d helpers equal their JAX counterparts exactly.
+  - the s2d helpers equal their JAX counterparts exactly;
+  - the kernel's own arithmetic (csrc/stem.cu: exact pixel values times
+    weights split into two TF32 halves, accumulated in f32 in the kernel's
+    order, minus the in-frame mean correction), emulated in torch, meets
+    the card's 1e-5 bound.
 
 The kernel itself is held against the plain version on the card
 (gpu-marked test below, and chip_smoke.py).
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from rs_face_detection_tpu.models.layers import space_to_depth as jax_space_to_depth
 from rs_face_detection_tpu.ops.image import s2d_layout_host
 from rs_face_detection_tpu.ops.image import s2d_stem_input as jax_s2d_stem_input
 from rs_face_detection_tpu.ops.stem_pallas import fold_stem_params as jax_fold
 from rs_face_detection_tpu.ops.stem_pallas import fused_stem_s2d
+from rs_face_detection_tpu_torch.configs import FaceDetectionConfig
 from rs_face_detection_tpu_torch.kernels import stem as kstem
-from rs_face_detection_tpu_torch.ops.image import s2d_layout, s2d_stem_input, space_to_depth
+from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch, s2d_layout, s2d_stem_input, space_to_depth
 from rs_face_detection_tpu_torch.ops.stem import fold_stem_params, fused_stem, fused_stem_plain
 from test_stem_pallas import MEANS, STDS, _xla_chain
 
@@ -136,6 +144,114 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         kstem.fused_stem_cuda(torch.zeros(1, 8, 8, 3, dtype=torch.uint8), *consts)
 
 
+def _tf32_rna(x):
+    """cvt.rna.tf32.f32 by int32 bit operations: the f32 mantissa rounded to
+    10 bits, ties away from zero (the sign is a separate bit)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _chop(x, top):
+    """x (float64) truncated toward zero to a multiple of 2^(e - 24), where
+    2^e > |top| >= 2^(e - 1): the 24 bits below top's leading bit."""
+    unit = torch.ldexp(torch.ones_like(top), torch.frexp(top.abs())[1] - 24)
+    return torch.trunc(x / unit) * unit
+
+
+def _stem_tf32x2(imgs_u8, w192, bn2, norm2, passes=2):
+    """csrc/stem.cu's conv arithmetic in torch, in the kernel's order.  With
+    x = (px - mean) * scale the conv is sum_in w' px - corr, w' = w * scale
+    in f32: the pixel values are exact in TF32 (0 outside the frame), w' is
+    split as hi = rna(w'), lo = rna(w' - hi), and every product is exact.
+    The taps run as the kernel's 24 k-steps of 8 (tap (u*8 + v)*3 + c), the
+    lo step before the hi step, each one mma into the f32 accumulator.  Each
+    mma is modelled as NVIDIA tensor cores were measured to add (Fasi,
+    Higham, Mikaitis and Pranesh, PeerJ CS 2021): the accumulator and the 8
+    exact products aligned to the largest of them with the bits past 24
+    truncated, summed, and the sum rounded toward zero to f32, which loses
+    more than round-to-nearest would.  corr = sum over the in-frame (u, v),
+    u-major, of sum_c w' mean in f32, and conv = acc - corr in f32, as the
+    kernel computes them; then BatchNorm, ReLU and the pool as the plain
+    version.  ``passes=1`` keeps the hi step alone: one TF32 pass on the
+    weights."""
+    px = s2d_layout(imgs_u8).float()  # (B, H/2, W/2, 12), the frame's pixel values
+    b, h2, w2, _ = px.shape
+    pad = (2, 1, 2, 1)
+    # Unfold rows are k*16 + dy*4 + dx; pixel tap (u, v, c) is s2d channel
+    # k = ((u & 1)*2 + (v & 1))*3 + c at dy = u // 2, dx = v // 2.
+    perm = [
+        (((u & 1) * 2 + (v & 1)) * 3 + c) * 16 + (u // 2) * 4 + v // 2
+        for u in range(8) for v in range(8) for c in range(3)
+    ]
+    cols = F.unfold(F.pad(px.permute(0, 3, 1, 2), pad), 4)[:, perm].double()  # (B, 192, L)
+    inside = F.unfold(F.pad(torch.ones(b, 12, h2, w2), pad), 4)[:, perm][:, ::3]  # (B, 64 (u, v), L)
+    w = w192.reshape(4, 4, 12, -1) * norm2[1][:, None]  # w' in f32, as the kernel rounds it
+    w = w.permute(2, 0, 1, 3).reshape(192, -1)[perm]  # (192 taps, 64), the kernel's tap order
+    wh = _tf32_rna(w)
+    wl = _tf32_rna(w - wh)
+    acc = torch.zeros(b, cols.shape[2], w.shape[1], dtype=torch.float64)
+    for ks in range(24):
+        a = cols[:, 8 * ks : 8 * ks + 8, :, None]  # (B, 8, L, 1)
+        for part in (wl, wh)[2 - passes :]:
+            prods = a * part[8 * ks : 8 * ks + 8, None, :].double()  # (B, 8, L, 64), exact
+            top = torch.maximum(acc.abs(), prods.abs().amax(1))
+            total = _chop(acc, top) + _chop(prods, top[:, None]).sum(1)
+            acc = _chop(total, total)
+    mean = norm2[0][torch.tensor(perm) // 16]  # the mean of each tap's s2d channel
+    wm = (w * mean[:, None]).reshape(64, 3, -1)  # w' mean per (u, v) and c, in f32
+    m = (wm[:, 0] + wm[:, 1]) + wm[:, 2]  # sum_c, in the kernel's order
+    corr = torch.zeros(b, cols.shape[2], w.shape[1])
+    for uv in range(64):
+        corr = corr + inside[:, uv, :, None] * m[uv]
+    y = (acc.float() - corr).permute(0, 2, 1).reshape(b, -1, h2, w2)
+    y = torch.relu(y * bn2[0][:, None, None] + bn2[1][:, None, None])
+    return F.max_pool2d(y, 3, 2, 1)
+
+
+def _canvas(kind):
+    if kind == "letterboxed":
+        face = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "real_face_crop.npz"))["face"]
+        return letterbox_u8_batch([face[:, :120]], 128, 96, torch.device("cpu"))[0]
+    return torch.full((1, 64, 96, 3), 0 if kind == "all-0" else 255, dtype=torch.uint8)
+
+
+@pytest.mark.parametrize("norm", ["config", "imagenet"])
+@pytest.mark.parametrize("kind", ["letterboxed", "all-0", "all-255"])
+def test_split_weights_on_exact_pixels_meet_the_kernel_tolerance(kind, norm):
+    """The arithmetic of csrc/stem.cu against fused_stem_plain within the
+    card's bound, 1e-5 x max|plain|, on phase 7's weight draws.  All-0 and
+    all-255 under ImageNet's normalization give the largest |x| and a border
+    of zeros beside it, where the correction changes from tap to tap.
+    Margin found: the emulation's error is at most 0.13 of the bound on
+    these six cases (0.132 letterboxed under the config's normalization).
+    One TF32 pass on the weights misses the bound 21-38 times over wherever
+    a pixel is not 0."""
+    wrng = np.random.default_rng(7)
+    params = [
+        torch.from_numpy(wrng.normal(size=(4, 4, 12, 64)).astype(np.float32) / np.float32(np.sqrt(192.0))),
+        torch.from_numpy(wrng.uniform(0.5, 1.5, 64).astype(np.float32)),
+        torch.from_numpy(wrng.normal(0, 0.1, 64).astype(np.float32)),
+        torch.from_numpy(wrng.normal(0, 0.1, 64).astype(np.float32)),
+        torch.from_numpy(wrng.uniform(0.5, 1.5, 64).astype(np.float32)),
+    ]
+    det = FaceDetectionConfig(backbone="resnet50")
+    means, stds, scale = {
+        "config": (det.pixel_means, det.pixel_stds, det.pixel_scale),
+        "imagenet": ((0.485, 0.456, 0.406), (0.229, 0.224, 0.225), 255.0),
+    }[norm]
+    consts = fold_stem_params(*params, means, stds, scale)
+    imgs = _canvas(kind)
+    want = fused_stem_plain(imgs, *consts)
+    got = _stem_tf32x2(imgs, *consts)
+    assert got.shape == want.shape
+    bound = 1e-5 * max(1.0, float(want.abs().max()))
+    err = float((got - want).abs().max())
+    assert err <= bound, (err, bound)
+    if kind != "all-0":
+        one_pass = float((_stem_tf32x2(imgs, *consts, passes=1) - want).abs().max())
+        assert one_pass > bound, (one_pass, bound)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -147,7 +263,8 @@ def cuda():
 @pytest.mark.parametrize("shape", [(8, 640, 640), (2, 72, 96), (3, 70, 34), (1, 2, 2)])
 def test_kernel_matches_plain(cuda, shape):
     """K2 against the plain version on the card, TF32 off.  Bound: 1e-5 of
-    the output's magnitude (192 f32 products summed in another order)."""
+    the output's magnitude (192 exact products of pixel values and split
+    weights, summed in another order, and the mean correction)."""
     saved = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
