@@ -24,7 +24,12 @@ and the last line is never printed):
      pipeline;
   6. timings with CUDA events after a warm-up: the median, min and max over
      five windows of back-to-back calls, with TF32 off; K1 also on the
-     device alone (20 calls replayed from a CUDA graph);
+     device alone (20 calls replayed from a CUDA graph) at (8, 128) on the
+     all-valid candidates of phase 3 and on the main path's own candidates
+     at the default 0.7 threshold, beside its bound and the launch floor
+     (a 1-element in-place add, replayed the same way), and split into its
+     phases by two variants of csrc/nms.cu built with its measurement
+     switches (phase 2 builds them);
   7. K2 vs plain: the fused ResNet-50 stem kernel against fused_stem_plain
      on letterboxed (8, 640, 640) canvases, on (2, 72, 96), (3, 70, 34) and
      (1, 2, 2) frames (partial tiles at every edge) and on all-0 and all-255
@@ -63,6 +68,8 @@ and the last line is never printed):
      its plain version and F.scaled_dot_product_attention (the library
      yardstick; the port never calls it), both on the device (graph replay)
      and from Python, and on the device at the verify's (1, 257, 16, 64);
+     K1 on the device at (1, 256): SCRFD's own candidates of phase 14's
+     single frame, and 256 valid random boxes;
  17. K3 vs plain: the int8 dequant-matmul against int8_matmul_plain in f32
      and bf16 arithmetic at the fc's (8, 25088, 512) and (1, 25088, 512), at
      (3, 1000, 96) and (5, 4095, 130), and at M = 0 (no launch); the port's
@@ -85,6 +92,11 @@ and the last line is never printed):
      FaceExtraction b8 and b1 float against int8, the weight bytes and the
      peak device memory of one call of each; FaceAntiSpoofing, FaceQuality
      and FaceQualityAssessment at b8;
+ 21. the kernels' own card tests: ``python -m pytest --noconftest -p
+     no:cacheprovider -m gpu tests/test_torch_kernels_gpu.py`` in a
+     subprocess (tests/conftest.py imports JAX, which the card's machine
+     need not have); it fails unless pytest exits 0, nothing is skipped and
+     every collected test passed;
 then a JSON line of the kernels, with each one's bound on the card, its
 time on the device as ``ms`` and from Python as ``python_ms``, and
 {"ok": true, "device": ...} last.
@@ -226,6 +238,52 @@ def card_bound(n_bytes, n_ops, ops_per_s):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+#: Variants of csrc/nms.cu built with its measurement switches: where K1's
+#: device time goes (phase 6).  Never loaded by the port.
+K1_VARIANTS = {"no_scan": ("-DRSFD_NMS_NO_SCAN",), "phase0": ("-DRSFD_NMS_NO_SCAN", "-DRSFD_NMS_NO_PHASE1")}
+
+
+def build_k1_variant(name):
+    """(name, rsfd_nms_mask of csrc/nms.cu built with K1_VARIANTS[name])."""
+    import ctypes
+
+    from rs_face_detection_tpu_torch.kernels import build
+
+    lib = build.library_path("nms")
+    out = lib.with_name(f"{lib.stem}-{name}.so")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *K1_VARIANTS[name], "-o", str(out), str(build.CSRC_DIR / "nms.cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    check(proc.returncode == 0, f"nvcc failed on the K1 variant {name}: {proc.stderr[-2000:]}")
+    fn = ctypes.CDLL(str(out)).rsfd_nms_mask
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    return name, fn
+
+
+def k1_phases_ms(variants, boxes, valid, thr):
+    """K1's device time split by the variants: phase 0 with the launch (the
+    variant with neither phase 1 nor the scan), phase 1 (the variant without
+    the scan, less phase 0) and the scan (the kernel less that variant)."""
+    import torch
+
+    from rs_face_detection_tpu_torch.kernels import nms as knms
+
+    keep = torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
+
+    def variant(fn):
+        def call():
+            stream = torch.cuda.current_stream().cuda_stream
+            check(fn(boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), *valid.shape, thr, stream) == 0,
+                  "K1 variant failed to launch")
+        return call
+
+    full = graph_ms(lambda: knms.nms_mask_cuda(boxes, valid, thr))[0]
+    no_scan = graph_ms(variant(variants["no_scan"]))[0]
+    phase0 = graph_ms(variant(variants["phase0"]))[0]
+    return {"kernel": full, "phase0": phase0, "phase1": no_scan - phase0, "scan": full - no_scan}
+
+
 def kernel_counters():
     """Kernel name -> the wrapper module whose ``launches`` counts it."""
     from rs_face_detection_tpu_torch.kernels import attention, int8_matmul, nms, stem
@@ -363,6 +421,7 @@ def ekyc_phases(dev, rng, face, card):
             k1_err = max(k1_err, float((got.int() - want.int()).abs().max()))
             check(torch.equal(got, want), f"K1 != plain on SCRFD's candidates {tuple(cand.valid.shape)}")
             k1_cases.append(f"{tuple(cand.valid.shape)} {int(cand.valid.sum())} valid, {int(got.sum())} kept")
+    scrfd_cand = cand  # (1, 256): the single frame's candidates, timed in phase 16
     knms.launches = 0
     out = det_gpu.detect_batch(batch, torch.ones(2))
     singles = [det_gpu(f) for f in frames]
@@ -482,6 +541,13 @@ def ekyc_phases(dev, rng, face, card):
     qst, kst, vst = (t.transpose(1, 2) for t in (qs, ks, vs))
     k4_dev_b1 = graph_ms(lambda: katt.flash_attention_cuda(qs, ks, vs))
     sdpa_dev_b1 = graph_ms(lambda: F.scaled_dot_product_attention(qst, kst, vst))
+    # K1 at SCRFD's (1, 256): its own candidates, and 256 valid random boxes.
+    k1_rand = torch.from_numpy(random_sorted_boxes(np.random.default_rng(SEED + 16), 1, 256)).to(dev)
+    k1_all = torch.ones((1, 256), dtype=torch.bool, device=dev)
+    k1_b1 = {
+        "scrfd": graph_ms(lambda: knms.nms_mask_cuda(scrfd_cand.boxes, scrfd_cand.valid, iou)),
+        "all_valid": graph_ms(lambda: knms.nms_mask_cuda(k1_rand, k1_all, iou)),
+    }
     sdpa_err = float((F.scaled_dot_product_attention(qt, kt, vt).transpose(1, 2).float()
                       - katt.flash_attention_cuda(q, k, v).float()).abs().max())
     print(
@@ -503,9 +569,15 @@ def ekyc_phases(dev, rng, face, card):
         f"phase 16 attention (1, 257, 16, 64) bf16 per call on the device: K4 {fmt(k4_dev_b1)}, "
         f"scaled_dot_product_attention {fmt(sdpa_dev_b1)} {card}"
     )
+    print(
+        f"phase 16 NMS (B=1, K=256) per call on the device (graph replay): K1 on SCRFD's candidates "
+        f"({int(scrfd_cand.valid.sum())} valid) {fmt(k1_b1['scrfd'])}, on 256 valid random boxes "
+        f"{fmt(k1_b1['all_valid'])} {card}"
+    )
     return {
         "counts": counts,
         "nms_err": k1_err,
+        "k1_b1": k1_b1,
         "k4": {
             "name": "flash_attention",
             "route": "cuda",
@@ -729,6 +801,34 @@ def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs):
     }
 
 
+GPU_TESTS = ("-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-m", "gpu", "-rs",
+             "tests/test_torch_kernels_gpu.py")
+
+
+def gpu_tests_phase(card):
+    """Phase 21: the kernels' own card tests in a subprocess, without
+    tests/conftest.py (it imports JAX).  Passes only if pytest exits 0,
+    nothing was skipped and every collected test passed."""
+    import re
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, *GPU_TESTS], cwd=HERE, capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    summary = lines[-1] if lines else ""  # "== 72 passed, 1 warning in 20.1s =="
+    collected = re.search(r"collected (\d+) items?", proc.stdout)
+    passed = re.search(r"(\d+) passed", summary)
+    n_collected = int(collected.group(1)) if collected else 0
+    n_passed = int(passed.group(1)) if passed else 0
+    ok = proc.returncode == 0 and n_collected > 0 and n_passed == n_collected and "skipped" not in summary
+    if not ok:
+        print("\n".join(lines[-60:]) + proc.stderr[-4000:], file=sys.stderr)
+    check(ok, f"kernel card tests: rc {proc.returncode}, {n_passed} passed of {n_collected} collected")
+    print(
+        f"phase 21 kernel card tests (python {' '.join(GPU_TESTS)}): rc {proc.returncode}, "
+        f"{n_passed} passed of {n_collected} collected, none skipped, in {time.perf_counter() - t0:.1f} s {card}"
+    )
+
+
 def main() -> int:
     import torch
 
@@ -770,8 +870,10 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     sources = ("nms", "stem", "attention", "int8_matmul")
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + len(K1_VARIANTS)) as pool:
+        variant_jobs = [pool.submit(build_k1_variant, name) for name in K1_VARIANTS]
         list(pool.map(build.build, sources))
+        k1_variants = dict(job.result() for job in variant_jobs)
     report = []
     for name in sources:
         build.load(name)
@@ -911,13 +1013,44 @@ def main() -> int:
     det_ms = cuda_ms(lambda: det_gpu.detect_batch(canvas, scales), 20)
     ext_ms = cuda_ms(lambda: pipe.extract_batch(requests[0]), 5)
     b8 = real_cand
+    main_cand = det_gpu.candidates(canvas)  # the main path's own, at the default 0.7 threshold
+    floor_x = torch.zeros(1, device=dev)
     k_dev = graph_ms(lambda: knms.nms_mask_cuda(b8.boxes, b8.valid, 0.45))
+    k_dev_main = graph_ms(lambda: knms.nms_mask_cuda(main_cand.boxes, main_cand.valid, 0.45))
+    floor_dev = graph_ms(lambda: floor_x.add_(1))
     k_ms = cuda_ms(lambda: knms.nms_mask_cuda(b8.boxes, b8.valid, 0.45), 200)
     p_ms = cuda_ms(lambda: nms_mask_plain(b8.boxes, b8.valid, 0.45), 20)
+    # K1's bound at (8, 128): boxes, valid and keep once each; about 15 f32
+    # operations per IoU that greedy NMS needs (each kept box against the
+    # later valid ones, this run's data).
+    keep = knms.nms_mask_cuda(b8.boxes, b8.valid, 0.45)
+    later_valid = torch.flip(torch.cumsum(torch.flip(b8.valid.int(), [1]), 1), [1]) - b8.valid.int()
+    k1_ious = int((later_valid * keep.int()).sum())
+    k1_bound = card_bound(b8.boxes.numel() * 4 + 2 * b8.valid.numel(), 15 * k1_ious, F32_OPS_PER_S)
+    main_keep = knms.nms_mask_cuda(main_cand.boxes, main_cand.valid, 0.45)
     print(f"phase 6 detect b8: {fmt(det_ms)}/batch, {BATCH * 1000 / det_ms[0]:.1f} img/s {card}")
     print(f"phase 6 extract_batch b8: {fmt(ext_ms)}/batch, {BATCH * 1000 / ext_ms[0]:.1f} img/s {card}")
-    print(f"phase 6 NMS (B=8, K=128) per call: K1 on the device (graph replay) {fmt(k_dev)}, from Python "
-          f"{fmt(k_ms)}; plain {fmt(p_ms)} {card}")
+    print(f"phase 6 NMS (B=8, K=128) per call, all 1024 rows valid ({int(keep.sum())} kept): K1 on the device "
+          f"(graph replay) {fmt(k_dev)}, from Python {fmt(k_ms)}; plain {fmt(p_ms)}; bound "
+          f"{k1_bound[0]:.7f} ms by {k1_bound[1]}; launch floor (1-element add, graph replay) "
+          f"{fmt(floor_dev)} {card}")
+    print(f"phase 6 NMS (B=8, K=128) on the main path's candidates at threshold "
+          f"{cfg.detection.confidence_threshold} ({int(main_cand.valid.sum())} valid, {int(main_keep.sum())} "
+          f"kept): K1 on the device (graph replay) {fmt(k_dev_main)} {card}")
+    # Where K1's time goes, on those two inputs and on random boxes (sparse:
+    # most are kept) at (8, 128) and SCRFD's (1, 256).
+    prng = np.random.default_rng(SEED + 6)
+    k1_inputs = {"(8, 128) all valid": (b8.boxes, b8.valid), "(8, 128) main path": (main_cand.boxes, main_cand.valid)}
+    for shape in ((8, 128), (1, 256)):
+        k1_inputs[f"{shape} random"] = (
+            torch.from_numpy(random_sorted_boxes(prng, *shape)).to(dev), torch.ones(shape, dtype=torch.bool, device=dev))
+    k1_phases, parts = {}, []
+    for label, (bx, vd) in k1_inputs.items():
+        k1_phases[label] = k1_phases_ms(k1_variants, bx, vd, 0.45)
+        kept = int(knms.nms_mask_cuda(bx, vd, 0.45).sum())
+        parts.append(f"{label} ({int(vd.sum())} valid, {kept} kept): " + ", ".join(
+            f"{name} {t:.4f}" for name, t in k1_phases[label].items()))
+    print(f"phase 6 K1 where the time goes, ms on the device (phase 0 includes the launch): {'; '.join(parts)} {card}")
 
     # 7. K2 vs plain (TF32 stays off).  Bound: 1e-5 of the output's
     # magnitude -- 192 f32 products summed in another order.
@@ -1134,13 +1267,7 @@ def main() -> int:
     ref_mods = sorted(m for m in sys.modules if m.split(".")[0] == "rs_face_detection_tpu")
     check(not ref_mods, f"the JAX package was imported: {ref_mods[:5]}")
 
-    # Bounds at the timed shapes.  K1 at (8, 128): boxes, valid and keep
-    # once each; about 15 f32 operations per IoU that greedy NMS needs
-    # (each kept box against the later valid ones, this run's data).
-    keep = knms.nms_mask_cuda(b8.boxes, b8.valid, 0.45)
-    later_valid = torch.flip(torch.cumsum(torch.flip(b8.valid.int(), [1]), 1), [1]) - b8.valid.int()
-    k1_ious = int((later_valid * keep.int()).sum())
-    k1_bound = card_bound(b8.boxes.numel() * 4 + 2 * b8.valid.numel(), 15 * k1_ious, F32_OPS_PER_S)
+    gpu_tests_phase(card)
 
     entries = [
         {
@@ -1155,6 +1282,11 @@ def main() -> int:
             "bound_ms": k1_bound[0],
             "bound_by": k1_bound[1],
             "library_ms": None,
+            "launch_floor_ms": floor_dev[0],
+            "phases_ms": k1_phases["(8, 128) all valid"],
+            "main_candidates_ms": k_dev_main[0],
+            "b1_k256_scrfd_ms": ekyc["k1_b1"]["scrfd"][0],
+            "b1_k256_all_valid_ms": ekyc["k1_b1"]["all_valid"][0],
         },
         {
             "name": "fused_stem",

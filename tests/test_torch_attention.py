@@ -3,7 +3,7 @@ package's attention: flax ``nn.dot_product_attention`` and the Pallas TPU
 flash attention of models/vit.py::_flash_attention_fn, run in interpret mode
 as tests/test_vit_fused_attention.py runs it.  Tolerance 2e-6: f32 sums in
 another order.  The CUDA kernel itself is held against the plain version on
-the card (marked ``gpu``)."""
+the card (tests/test_torch_kernels_gpu.py)."""
 
 import math
 
@@ -157,32 +157,3 @@ def test_bf16_rounding_of_the_tiling_meets_the_kernel_tolerance(shape):
     assert got.dtype == torch.bfloat16 and got.shape == shape
     err = float((got.float() - want.float()).abs().max())
     assert err <= 1e-2 * float(v.float().abs().max()), err
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize(
-    "shape",
-    [(8, 257, 16, 64), (1, 257, 16, 64), (2, 17, 2, 32), (1, 1, 16, 64), (3, 197, 12, 64), (1, 600, 2, 64),
-     (8, 600, 16, 64)],
-    ids=str,
-)
-def test_kernel_matches_plain_on_the_card(shape, dtype):
-    """K4 against the plain version on the same inputs (strided qkv views):
-    f32 within 2e-5 of max|v| (sums in another order), bf16 within 1e-2 of
-    max|v| (P is rounded to bf16 before PV).  At N = 600 K and V stream
-    through the 8-stage ring; (8, 600, 16, 64) streams it over three rounds
-    of 7 warps."""
-    if not torch.cuda.is_available():
-        pytest.skip("K4 is a CUDA kernel and this host has no card")
-    from rs_face_detection_tpu_torch.kernels import attention as katt
-
-    arr = np.random.default_rng(5).normal(size=(shape[0], shape[1], 3, *shape[2:]))
-    q, k, v = torch.from_numpy(arr).to("cuda", dtype).unbind(2)  # strided views
-    before = katt.launches
-    got = katt.flash_attention_cuda(q, k, v)
-    want = attention_plain(q, k, v)
-    torch.cuda.synchronize()
-    assert katt.launches == before + 1
-    bound = (2e-5 if dtype == torch.float32 else 1e-2) * float(v.float().abs().max())
-    assert float((got.float() - want.float()).abs().max()) <= bound

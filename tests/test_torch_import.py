@@ -1,6 +1,7 @@
 """The port never imports JAX, nor any module of the JAX package: every
-module loads in a process without them.  Its entry points run on the card
-unless asked for the CPU."""
+module loads in a process without them, and so does the file of the
+kernels' card tests.  Its entry points run on the card unless asked for the
+CPU."""
 
 import json
 import os
@@ -44,6 +45,32 @@ def test_port_imports_without_jax():
         "serving.detection_server", "utils.image_io",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]
+
+
+#: Collect the card tests as the card's machine runs them: no JAX, no flax,
+#: and no tests/conftest.py (it imports JAX).
+_COLLECT_GPU_TESTS = """
+import sys
+sys.modules["jax"] = sys.modules["flax"] = None
+import pytest
+sys.exit(pytest.main(["--noconftest", "--collect-only", "-q", "-p", "no:cacheprovider",
+                      "tests/test_torch_kernels_gpu.py"]))
+"""
+
+#: The four kernels' card tests moved there (34 cases) and the K1 cases
+#: added beside them (38).
+GPU_TEST_CASES = 34 + 38
+
+
+def test_kernel_card_tests_collect_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _COLLECT_GPU_TESTS], capture_output=True, text=True, env=env, cwd=REPO,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    cases = [ln for ln in proc.stdout.splitlines() if ln.startswith("tests/test_torch_kernels_gpu.py::")]
+    assert len(cases) >= GPU_TEST_CASES, proc.stdout
 
 
 @pytest.mark.parametrize(

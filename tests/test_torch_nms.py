@@ -3,8 +3,11 @@
 The plain version (ops/nms.py::nms_mask_plain) is the CUDA kernel's
 reference and the CPU path; it must give the same keep mask, bit for bit, as
 nms_mask_greedy, nms_mask_fixpoint, the Pallas kernel (interpret mode) and
-the host oracle nms_numpy, batched over images.  The kernel itself is held
-against the plain version on the card (gpu-marked test, and chip_smoke.py).
+the host oracle nms_numpy, batched over images.  The CUDA kernel's own steps
+(csrc/nms.cu: the valid bound, 32-lane ballot words, the scan over kept
+boxes only) are emulated in numpy and held to the same masks bit for bit.
+The kernel itself is held against the plain version on the card
+(tests/test_torch_kernels_gpu.py, and chip_smoke.py).
 """
 
 import jax.numpy as jnp
@@ -135,23 +138,137 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         knms.nms_mask_cuda(torch.zeros(1, 4, 4), torch.ones(1, 4, dtype=torch.bool), 0.45)
 
 
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the NMS kernel has no CPU mode")
-    return torch.device("cuda")
+# --- csrc/nms.cu, step by step -------------------------------------------
+
+_WARPS = 32  # kThreads / 32
+_MASK64 = (1 << 64) - 1
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("k", [16, 100, 128, 130, 1000, 1024])
-def test_kernel_matches_plain(cuda, k):
-    rng = np.random.default_rng(k)
-    boxes = np.stack([_sorted(_random_dets(rng, k, ties=True))[1] for _ in range(32)])
-    valid = rng.uniform(size=(32, k)) > 0.2
-    b, v = torch.from_numpy(boxes).to(cuda), torch.from_numpy(valid).to(cuda)
-    before = knms.launches
-    got = knms.nms_mask_cuda(b, v, 0.45)
-    torch.cuda.synchronize()
-    assert knms.launches == before + 1
-    assert torch.equal(got, nms_mask_plain(b, v, 0.45))
-    assert torch.equal(got.cpu(), nms_mask_plain(b.cpu(), v.cpu(), 0.45))
+def _ballot(pred):
+    """__ballot_sync over 32 lanes: bit l set when lane l's predicate holds."""
+    return int(np.packbits(np.asarray(pred, bool), bitorder="little").view("<u4")[0])
+
+
+def _suppresses(a, area_a, b, area_b, thr):
+    """The kernel's ``suppresses`` over the 32 lanes' boxes b, in float32."""
+    one = np.float32(1)
+    iw = np.minimum(a[2], b[:, 2]) - np.maximum(a[0], b[:, 0]) + one
+    ih = np.minimum(a[3], b[:, 3]) - np.maximum(a[1], b[:, 1]) + one
+    iw = np.where(iw < 0, np.float32(0), iw)  # clamp0 keeps a NaN
+    ih = np.where(ih < 0, np.float32(0), ih)
+    inter = iw * ih
+    skip = (inter == 0) & (thr >= 0)  # the exact shortcut: no division
+    return ~skip & (inter / (area_a + area_b - inter) > thr)
+
+
+def _kernel_emulation(boxes, valid, thr, rng):
+    """The keep mask as csrc/nms.cu computes it, image by image: phase 0's
+    ballot bit sets and valid bound n, phase 1's 32-column ballot words
+    (rows in the zigzag order; the words a row leaves unwritten hold random
+    bits, as uninitialised shared memory may), phase 2's scan over kept boxes
+    only, with a removed word per lane."""
+    batch, k = valid.shape
+    thr = np.float32(thr)
+    span = 64 * ((k + 63) // 64)
+    keep = np.zeros((batch, k), bool)
+    for img in range(batch):
+        box = np.zeros((span, 4), np.float32)
+        box[:k] = boxes[img]
+        v = np.zeros(span, bool)
+        v[:k] = valid[img]
+        ok = v & ~np.isnan(box).any(1)
+        area = (box[:, 2] - box[:, 0] + np.float32(1)) * (box[:, 3] - box[:, 1] + np.float32(1))
+        vbits = [_ballot(v[c : c + 32]) for c in range(0, span, 32)]
+        okbits = [_ballot(ok[c : c + 32]) for c in range(0, span, 32)]
+        n = 1 + max((c * 32 + b.bit_length() - 1 for c, b in enumerate(vbits) if b), default=-1)
+        chunks, words = (n + 31) // 32, (n + 63) // 64
+        rows = rng.integers(0, 1 << 32, size=(n, 2 * words), dtype=np.uint64)
+        order = [
+            _WARPS * q + (_WARPS - 1 - g if q & 1 else g)
+            for q in range(n // _WARPS + 1)
+            for g in range(_WARPS)
+        ]
+        for i in (i for i in order if i < n):
+            if not (vbits[i >> 5] >> (i & 31)) & 1:
+                continue
+            ok_i = bool((okbits[i >> 5] >> (i & 31)) & 1)
+            with np.errstate(invalid="ignore", divide="ignore", over="ignore"):
+                for c in range(i >> 5, chunks):
+                    j = 32 * c + np.arange(32)
+                    lane_ok = (okbits[c] >> np.arange(32)) & 1 == 1
+                    s = ok_i & (j > i) & lane_ok & _suppresses(box[i], area[i], box[j], area[j], thr)
+                    rows[i, c] = _ballot(s)
+
+        def word(i, w):
+            return int(rows[i, 2 * w]) | int(rows[i, 2 * w + 1]) << 32
+
+        removed = [0] * words
+        kept = [0] * words
+        for w in range(words):
+            valid_w = vbits[2 * w] | vbits[2 * w + 1] << 32
+            cand = valid_w & ~removed[w] & _MASK64
+            while cand:
+                low = cand & -cand
+                i = 64 * w + low.bit_length() - 1
+                for lane in range(w + 1, words):
+                    removed[lane] |= word(i, lane)
+                kept[w] |= low
+                cand = (cand ^ low) & ~word(i, w)
+        keep[img, :n] = [(kept[j >> 6] >> (j & 63)) & 1 for j in range(n)]
+    return keep
+
+
+def _emulation_cases():
+    rng = np.random.default_rng(11)
+    cases = []
+    for k, ties in ((16, False), (100, True), (130, False), (256, True)):
+        boxes = np.stack([_sorted(_random_dets(rng, k, ties))[1] for _ in range(2)])
+        cases.append((f"random-k{k}-ties{ties}", boxes, np.ones((2, k), bool), 0.45))
+    dets = np.array(
+        [[100, 100, 210, 210, 0.72], [250, 250, 420, 420, 0.8], [220, 220, 320, 330, 0.92],
+         [100, 100, 210, 210, 0.6]], np.float32,
+    )
+    cases.append(("golden", _sorted(dets)[1][None], np.ones((1, 4), bool), 0.4))
+    chain = np.array([[i * 6.0, 0.0, i * 6.0 + 12.0, 12.0] for i in range(40)], np.float32)
+    cases.append(("chain", chain[None], np.ones((1, 40), bool), 0.3))
+    boxes = np.stack([_sorted(_random_dets(rng, 48, ties=True))[1] for _ in range(4)])
+    valid = np.ones((4, 48), bool)
+    valid[0] = False
+    valid[1, 30:] = False
+    valid[2, ::3] = False
+    cases.append(("padding", boxes, valid, 0.45))
+    boxes = np.stack([_sorted(_random_dets(rng, 32, ties=True))[1] for _ in range(2)])
+    boxes[:, ::5, 2] = np.nan
+    cases.append(("nan", boxes, np.ones((2, 32), bool), 0.45))
+    for thr in (0.45, -0.1):  # inf - inf in a clamp: NaN, which never suppresses
+        boxes = np.stack([_sorted(_random_dets(rng, 40, ties=True))[1] for _ in range(2)])
+        boxes[:, ::7, 2] = np.inf
+        boxes[:, 3::7, 0] = np.inf
+        boxes[:, 1::9, 1] = -np.inf
+        cases.append((f"inf-thr{thr}", boxes, np.ones((2, 40), bool), thr))
+    for thr in (0.0, -0.1):
+        boxes = np.stack([_sorted(_random_dets(rng, 70, ties=True))[1] for _ in range(2)])
+        cases.append((f"thr{thr}", boxes, rng.uniform(size=(2, 70)) > 0.3, thr))
+    # The last valid box at 63, 64 and 127: n ends a word, opens one, ends two.
+    for last in (63, 64, 127):
+        boxes = np.stack([_sorted(_random_dets(rng, 130, ties=True))[1] for _ in range(2)])
+        valid = np.zeros((2, 130), bool)
+        valid[0, : last + 1] = True  # a prefix
+        valid[1, : last + 1] = rng.uniform(size=last + 1) > 0.3  # holes
+        valid[1, last] = True
+        cases.append((f"last{last}", boxes, valid, 0.45))
+    return cases
+
+
+@pytest.mark.parametrize("case", _emulation_cases(), ids=lambda c: c[0])
+def test_kernel_emulation_is_bit_exact(case):
+    """csrc/nms.cu's algorithm, step by step, equals nms_mask_plain and the
+    JAX greedy scan bit for bit, whatever the words a row leaves unwritten
+    hold."""
+    _, boxes, valid, thr = case
+    plain = nms_mask_plain(torch.from_numpy(boxes), torch.from_numpy(valid), thr).numpy()
+    for seed in range(2):
+        np.testing.assert_array_equal(_kernel_emulation(boxes, valid, thr, np.random.default_rng(seed)), plain)
+    for i in range(boxes.shape[0]):
+        greedy = np.asarray(nms_mask_greedy(jnp.asarray(boxes[i]), jnp.asarray(valid[i]), thr))
+        np.testing.assert_array_equal(plain[i], greedy, err_msg=f"image {i}")

@@ -6,7 +6,7 @@ layout maps).  K3's plain version is held within 1e-5 of sum_k |x_k w_kn|
 per output: against the Pallas kernel in interpret mode in bf16 (the same
 bf16 roundings of x and w, only the f32 summation order differs), and
 against numpy float64 in f32.  The CUDA kernel itself is held against the
-plain version on the card (marked ``gpu``).
+plain version on the card (tests/test_torch_kernels_gpu.py).
 """
 
 import jax
@@ -172,26 +172,3 @@ def test_split_plan_covers_k():
         rows, chunks = k3.split_plan(m, k, n, 132)
         assert rows % 32 == 0 and rows <= 1024 and chunks * rows >= k > (chunks - 1) * rows
     assert k3.split_plan(8, 25088, 512, 132) == (768, 33)  # 4 column tiles x 33 chunks: 132 CTAs
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("compute", ["f32", "bf16"])
-@pytest.mark.parametrize(
-    "shape", [(8, 25088, 512), (1, 25088, 512), (3, 1000, 96), (5, 4095, 130), (0, 64, 32)], ids=str
-)
-def test_kernel_matches_plain_on_the_card(shape, compute):
-    """K3 against the plain version on the same inputs: within 1e-5 of
-    sum_k |x_k w_kn| (f32 sums in another order); M = 0 launches nothing."""
-    if not torch.cuda.is_available():
-        pytest.skip("K3 is a CUDA kernel and this host has no card")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    x, q, s = _operands(shape, 6)
-    xt, qt, st = (torch.from_numpy(a).cuda() for a in (x, q, s))
-    before = k3.launches
-    got = k3.int8_matmul_cuda(xt, qt, st, compute)
-    want = quantize.int8_matmul_plain(xt, qt, st, compute)
-    torch.cuda.synchronize()
-    assert k3.launches == before + (shape[0] > 0)
-    assert got.shape == want.shape
-    bound = 1e-5 * _scale_bound(x, q, s, compute == "bf16").cuda()
-    assert bool(((got - want).abs().double() <= bound).all())

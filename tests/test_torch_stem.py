@@ -17,7 +17,7 @@ path.  Required, in f32 on the CPU:
     the card's 1e-5 bound.
 
 The kernel itself is held against the plain version on the card
-(gpu-marked test below, and chip_smoke.py).
+(tests/test_torch_kernels_gpu.py, and chip_smoke.py).
 """
 
 import os
@@ -250,37 +250,3 @@ def test_split_weights_on_exact_pixels_meet_the_kernel_tolerance(kind, norm):
     if kind != "all-0":
         one_pass = float((_stem_tf32x2(imgs, *consts, passes=1) - want).abs().max())
         assert one_pass > bound, (one_pass, bound)
-
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the fused stem kernel has no CPU mode")
-    return torch.device("cuda")
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 640, 640), (2, 72, 96), (3, 70, 34), (1, 2, 2)])
-def test_kernel_matches_plain(cuda, shape):
-    """K2 against the plain version on the card, TF32 off.  Bound: 1e-5 of
-    the output's magnitude (192 exact products of pixel values and split
-    weights, summed in another order, and the mean correction)."""
-    saved = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        consts = [c.to(cuda) for c in _folds(_stem_weights(8))[1]]
-        imgs = torch.from_numpy(
-            np.random.default_rng(8).integers(0, 256, (*shape, 3), dtype=np.uint8)
-        ).to(cuda)
-        before = kstem.launches
-        got = kstem.fused_stem_cuda(imgs, *consts)
-        want = fused_stem_plain(imgs, *consts)
-        torch.cuda.synchronize()
-        assert kstem.launches == before + 1
-        assert got.shape == want.shape
-        bound = 1e-5 * float(want.abs().max())
-        assert float((got - want).abs().max()) <= bound
-        with pytest.raises(ValueError, match="even"):
-            kstem.fused_stem_cuda(imgs[:, :-1].contiguous(), *consts)
-    finally:
-        torch.backends.cudnn.allow_tf32 = saved
