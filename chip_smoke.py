@@ -72,8 +72,12 @@ and the last line is never printed):
      single frame, and 256 valid random boxes;
  17. K3 vs plain: the int8 dequant-matmul against int8_matmul_plain in f32
      and bf16 arithmetic at the fc's (8, 25088, 512) and (1, 25088, 512), at
-     (3, 1000, 96) and (5, 4095, 130), and at M = 0 (no launch); the port's
-     quantizer on the seeded IResNet-50 (53 int8 leaves, fc q (25088, 512));
+     every row tile (M = 2, 9, 17, 33), ragged K (17, 4095) and N (1, 15,
+     130), all-positive operands, a q one byte past a 16-byte boundary, and
+     at M = 0 (no launch); every call made twice with the same bits, and a
+     call captured in a CUDA graph equal to the eager one; K3's plan and
+     dynamic shared memory at the fc's shape; the port's quantizer on the
+     seeded IResNet-50 (53 int8 leaves, fc q (25088, 512));
  18. int8 main path: FaceExtraction(device="cuda", quantized=True) on the
      seeded full-width IResNet-50, 3 calls of 8 aligned 112x112 crops plus
      one of 1; K3 must launch once per call, K1, K2 and K4 never; the first
@@ -84,11 +88,18 @@ and the last line is never printed):
      and FaceAntiSpoofing (four seeded MiniFASNets at 80/80/256/128) on the
      crops and on the faces phase 5 selected;
  20. int8 timings: K3 per launch in f32 and bf16 at (8, 25088, 512) and
-     (1, 25088, 512), on the device (20 calls replayed from a CUDA graph;
-     the kernels line's time) and from Python, its plain version, F.linear
-     on the dequantized f32 weight (the float fc, 4x the weight bytes) both
-     ways, torch._weight_int8pack_mm in bf16 where this torch runs it on
-     CUDA (the library yardstick);
+     (1, 25088, 512), on the device with a warm L2 (20 calls on one q
+     replayed from a CUDA graph; the kernels line's ``ms``) and a cold one
+     (24 calls rotating over 6 copies of the fc's q, 77 MB against the 50 MB
+     L2: ``cold_ms``, ``b1_cold_ms``, held against ``bound_ms``), and from
+     Python, its plain version, F.linear on the dequantized f32 weight (the
+     float fc, 4x the weight bytes) both ways, torch._weight_int8pack_mm in
+     bf16 where this torch runs it on CUDA (the library yardstick, on the
+     device as ``library_dev_ms`` and from Python as ``library_ms``); where
+     K3's time goes: one cold call of a variant of csrc/int8_matmul.cu built
+     with its measurement switch RSFD_K3_TIMELINE (phase 2 builds it), every
+     CTA's stamps at x landed, x split, loop done, cluster summed, arrival
+     counted and output written;
      FaceExtraction b8 and b1 float against int8, the weight bytes and the
      peak device memory of one call of each; FaceAntiSpoofing, FaceQuality
      and FaceQualityAssessment at b8;
@@ -243,22 +254,83 @@ def card_bound(n_bytes, n_ops, ops_per_s):
 K1_VARIANTS = {"no_scan": ("-DRSFD_NMS_NO_SCAN",), "phase0": ("-DRSFD_NMS_NO_SCAN", "-DRSFD_NMS_NO_PHASE1")}
 
 
-def build_k1_variant(name):
-    """(name, rsfd_nms_mask of csrc/nms.cu built with K1_VARIANTS[name])."""
+def build_variant(source, name, flags):
+    """csrc/<source>.cu built with its measurement switches `flags` into
+    _build/ beside the port's own library, loaded with ctypes."""
     import ctypes
 
     from rs_face_detection_tpu_torch.kernels import build
 
-    lib = build.library_path("nms")
+    lib = build.library_path(source)
     out = lib.with_name(f"{lib.stem}-{name}.so")
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *K1_VARIANTS[name], "-o", str(out), str(build.CSRC_DIR / "nms.cu")]
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *flags, "-o", str(out), str(build.CSRC_DIR / f"{source}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    check(proc.returncode == 0, f"nvcc failed on the K1 variant {name}: {proc.stderr[-2000:]}")
-    fn = ctypes.CDLL(str(out)).rsfd_nms_mask
+    check(proc.returncode == 0, f"nvcc failed on the {source} variant {name}: {proc.stderr[-2000:]}")
+    return ctypes.CDLL(str(out))
+
+
+def build_k1_variant(name):
+    """(name, rsfd_nms_mask of csrc/nms.cu built with K1_VARIANTS[name])."""
+    import ctypes
+
+    fn = build_variant("nms", name, K1_VARIANTS[name]).rsfd_nms_mask
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     return name, fn
+
+
+def build_k3_timeline():
+    """rsfd_int8_matmul and rsfd_int8_matmul_timeline of csrc/int8_matmul.cu
+    built with its measurement switch RSFD_K3_TIMELINE (phase 20).  Never
+    loaded by the port."""
+    import ctypes
+
+    so = build_variant("int8_matmul", "timeline", ("-DRSFD_K3_TIMELINE",))
+    so.rsfd_int8_matmul.restype = ctypes.c_int
+    so.rsfd_int8_matmul.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    so.rsfd_int8_matmul_timeline.restype = ctypes.c_int
+    so.rsfd_int8_matmul_timeline.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    return so
+
+
+#: The timeline variant's stamps (csrc/int8_matmul.cu, RSFD_K3_TIMELINE).
+K3_MARKS = ("start", "x landed", "x split", "loop done", "cluster summed", "arrival counted", "output written")
+
+
+def k3_timeline(so, x, q_copies, s, compute):
+    """Per-CTA phase stamps of one cold call of the timeline variant (the
+    last of 7, rotating over the copies of q): for each mark, the median and
+    the max over the CTAs that stamped it, in us from the first CTA's
+    start."""
+    import numpy as np
+    import torch
+
+    from rs_face_detection_tpu_torch.kernels import int8_matmul as k3
+
+    m, k = x.shape
+    n = q_copies[0].shape[1]
+    rows, chunks, cl = k3.launch_plan(m, k, n, *k3._card(x.device.index or 0))
+    block_m = 1 if m == 1 else k3.BLOCK_M
+    tiles = -(-n // k3.BLOCK_N) * -(-m // block_m)
+    out = torch.empty((m, n), device=x.device)
+    partial = torch.empty(max(1, (chunks // cl) * tiles * block_m * k3.BLOCK_N), device=x.device)
+    for i in range(7):
+        torch.cuda.synchronize()
+        stream = torch.cuda.current_stream().cuda_stream
+        check(so.rsfd_int8_matmul(x.data_ptr(), q_copies[i % len(q_copies)].data_ptr(), s.data_ptr(),
+                                  out.data_ptr(), partial.data_ptr(), m, k, n, rows, chunks, cl, 0,
+                                  int(compute == "bf16"), stream) == 0, "K3 timeline variant failed to launch")
+    stamps = np.zeros((tiles * chunks, len(K3_MARKS)), np.uint64)
+    check(so.rsfd_int8_matmul_timeline(stamps.ctypes.data, tiles * chunks) == 0, "K3 timeline copy failed")
+    stamps = stamps.astype(np.int64)
+    t0 = stamps[:, 0].min()
+    result = {}
+    for j, name in enumerate(K3_MARKS):
+        fresh = stamps[:, j] >= t0  # the last marks come from the CTAs that reach them; others are stale
+        col = (stamps[fresh, j] - t0) / 1000.0
+        result[name] = (float(np.median(col)), float(col.max()))
+    return result
 
 
 def k1_phases_ms(variants, boxes, valid, thr):
@@ -595,10 +667,11 @@ def ekyc_phases(dev, rng, face, card):
     }
 
 
-def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs):
+def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs, k3_timeline_so=None):
     """Phases 17-20 (K3 and the staged per-face modules); returns the counts
     of the int8 main path and K3's entry of the kernels line.  TF32 is off
-    throughout."""
+    throughout.  ``k3_timeline_so``: build_k3_timeline's library, for where
+    K3's time goes (phase 20)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -614,21 +687,39 @@ def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs):
 
     # 17. K3 vs plain.  Bound: 1e-5 of sum_k |x_k w_kn| per output (both
     # arithmetics round x and w alike; only the f32 summation order differs).
+    # Shapes: the fc's, every row tile (M = 1, 2, 8, 9, 17, 33), ragged K
+    # tails (17, 4095), ragged column tiles (N = 1, 15, 130: byte loads),
+    # all-positive operands at the fc's shape (the truncating adds' worst
+    # case), a q one byte past a 16-byte boundary, and M = 0.  Every call is
+    # made twice and must give the same bits.
     k3_err, k3_lines = 0.0, []
+    cases = [((8, 25088, 512), ""), ((1, 25088, 512), ""), ((3, 1000, 96), ""), ((5, 4095, 130), ""),
+             ((2, 25088, 512), ""), ((9, 4095, 512), ""), ((17, 1000, 96), ""), ((33, 25088, 512), ""),
+             ((5, 17, 96), ""), ((3, 1000, 1), ""), ((3, 1000, 15), ""), ((8, 25088, 512), "positive"),
+             ((5, 1000, 96), "misaligned q"), ((0, 25088, 512), "")]
     for compute in ("f32", "bf16"):
-        for m, k, n in ((8, 25088, 512), (1, 25088, 512), (3, 1000, 96), (5, 4095, 130), (0, 25088, 512)):
-            x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
-            q_np, s_np = quantize_array(rng.normal(0, 0.05, size=(k, n)).astype(np.float32))
+        for (m, k, n), kind in cases:
+            if kind == "positive":
+                x = torch.from_numpy(rng.uniform(0, 1, size=(m, k)).astype(np.float32)).to(dev)
+                q_np, s_np = quantize_array(rng.uniform(0, 0.05, size=(k, n)).astype(np.float32))
+            else:
+                x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(dev)
+                q_np, s_np = quantize_array(rng.normal(0, 0.05, size=(k, n)).astype(np.float32))
             q, s = torch.from_numpy(q_np).to(dev), torch.from_numpy(s_np).to(dev)
+            if kind == "misaligned q":
+                q = torch.empty(q.numel() + 1, dtype=torch.int8, device=dev)[1:].view(k, n).copy_(q)
+                check(q.is_contiguous() and q.data_ptr() % 16 == 1, "the misaligned q is not one byte off")
             before = k3.launches
             got = k3.int8_matmul_cuda(x, q, s, compute)
+            again = k3.int8_matmul_cuda(x, q, s, compute)
             want = int8_matmul_plain(x, q, s, compute)
             torch.cuda.synchronize()
             check(got.shape == (m, n) and got.dtype == torch.float32, f"K3 output {tuple(got.shape)} {got.dtype}")
-            check(k3.launches == before + (m > 0), f"K3 launched {k3.launches - before} times at M = {m}")
+            check(k3.launches == before + 2 * (m > 0), f"K3 launched {k3.launches - before} times at M = {m}")
             if m == 0:
                 k3_lines.append(f"{compute} {(m, k, n)} empty, no launch")
                 continue
+            check(torch.equal(got, again), f"K3 repeat differs at {(m, k, n)} {compute}")
             check(bool(torch.isfinite(got).all()), f"K3 not finite at {(m, k, n)} {compute}")
             if compute == "f32":
                 xa, wa = x.abs(), (q.float() * s).abs()
@@ -636,9 +727,31 @@ def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs):
                 xa, wa = x.bfloat16().float().abs(), (q.bfloat16() * s.bfloat16()).float().abs()
             bound = 1e-5 * (xa @ wa)
             err = (got - want).abs()
-            check(bool((err <= bound).all()), f"K3 != plain at {(m, k, n)} {compute}: {float(err.max())}")
+            check(bool((err <= bound).all()), f"K3 != plain at {(m, k, n)} {kind} {compute}: {float(err.max())}")
             k3_err = max(k3_err, float(err.max()))
-            k3_lines.append(f"{compute} {(m, k, n)} {float(err.max()):.3g} ({float((err / bound).max()):.2g} of the bound)")
+            label = f"{compute} {(m, k, n)}{' ' + kind if kind else ''}"
+            k3_lines.append(f"{label} {float(err.max()):.3g} ({float((err / bound).max()):.2g} of the bound)")
+    # A call captured in a CUDA graph gives the eager call's bits.
+    x = torch.from_numpy(rng.normal(size=(8, 25088)).astype(np.float32)).to(dev)
+    q_np, s_np = quantize_array(rng.normal(0, 0.05, size=(25088, 512)).astype(np.float32))
+    q, s = torch.from_numpy(q_np).to(dev), torch.from_numpy(s_np).to(dev)
+    for compute in ("f32", "bf16"):
+        eager = k3.int8_matmul_cuda(x, q, s, compute)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            k3.int8_matmul_cuda(x, q, s, compute)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = k3.int8_matmul_cuda(x, q, s, compute)
+        graph.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(captured, eager), f"K3 captured in a CUDA graph differs from the eager call ({compute})")
+    k3_plan = k3.launch_plan(8, 25088, 512, *k3._card(torch.cuda.current_device()))
+    k3_lines.append(
+        f"graph replay equals eager in f32 and bf16; plan at (8, 25088, 512): {k3_plan[0]} rows x {k3_plan[1]} "
+        f"chunks in clusters of {k3_plan[2]}, {k3.smem_bytes(8, k3_plan[0], 'f32')} B of dynamic shared memory")
     int8_model = quantize_module(weights.load_model("iresnet50", e_sd))
     q_leaves = [key for key in int8_model.state_dict() if key.endswith(".weight_q")]
     fc_q = int8_model.fc.weight_q
@@ -728,11 +841,25 @@ def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs):
     # K3 and the float fc both ways: back to back from Python (what a caller
     # pays; on a slow host the wrapper's own time sets the pace) and as 20
     # calls replayed from one CUDA graph (the device's time).
-    k3_ms, k3_dev = {}, {}
+    # Cold L2: 24 calls replayed from one graph rotating over 6 copies of the
+    # fc's q (77 MB, more than the 50 MB L2), as the real path finds q after
+    # the int8 convolutions' dequantization has evicted it.
+    q_copies = [q.clone() for _ in range(6)]
+    k3_ms, k3_dev, k3_cold = {}, {}, {}
     for m, x in ((8, x8), (1, x1)):
         for c in ("f32", "bf16"):
             k3_ms[m, c] = cuda_ms(lambda x=x, c=c: k3.int8_matmul_cuda(x, q, s, c), 200)
             k3_dev[m, c] = graph_ms(lambda x=x, c=c: k3.int8_matmul_cuda(x, q, s, c))
+            turn = iter(range(10**9))
+            k3_cold[m, c] = graph_ms(lambda x=x, c=c: k3.int8_matmul_cuda(x, q_copies[next(turn) % 6], s, c), reps=24)
+    timeline = {}
+    if k3_timeline_so is not None:
+        for m, x in ((8, x8), (1, x1)):
+            timeline[m] = k3_timeline(k3_timeline_so, x, q_copies, s, "f32")
+            stamps = "; ".join(f"{name} {med:.2f}/{mx:.2f}" for name, (med, mx) in timeline[m].items())
+            print(f"phase 20 K3 ({m}, 25088, 512) f32 where the time goes (the RSFD_K3_TIMELINE variant, one cold "
+                  f"call, us from the first CTA's start, median/max over the CTAs): {stamps} {card}")
+    del q_copies
     plain_ms = {c: cuda_ms(lambda c=c: int8_matmul_plain(x8, q, s, c), 50) for c in ("f32", "bf16")}
     linear_ms = cuda_ms(lambda: F.linear(x8, w32), 200)
     linear_dev = graph_ms(lambda: F.linear(x8, w32))
@@ -742,20 +869,26 @@ def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs):
         lib_out = torch._weight_int8pack_mm(xb, qt, sb)
         lib_err = float((lib_out.float() - int8_matmul_plain(x8, q, s, "bf16")).abs().max())
         lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(xb, qt, sb), 200)
-        lib_line = f"torch._weight_int8pack_mm bf16 {fmt(lib_ms)} (vs plain bf16 max abs err {lib_err:.3g})"
+        lib_dev = graph_ms(lambda: torch._weight_int8pack_mm(xb, qt, sb))
+        lib_line = (f"torch._weight_int8pack_mm bf16 on the device {fmt(lib_dev)}, from Python {fmt(lib_ms)} "
+                    f"(vs plain bf16 max abs err {lib_err:.3g})")
     except Exception as exc:  # no CUDA kernel in this torch: no library yardstick
-        lib_ms, lib_line = None, f"torch._weight_int8pack_mm: {type(exc).__name__}"
+        lib_ms, lib_dev, lib_line = None, None, f"torch._weight_int8pack_mm: {type(exc).__name__}"
     m, k, n = x8.shape[0], q.shape[0], q.shape[1]
     k3_bound = card_bound(m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * k * n, F32_OPS_PER_S)
+    k3_b1_bound = card_bound(k * 4 + k * n + n * 4 + n * 4, 2 * k * n, F32_OPS_PER_S)
     print(
         f"phase 20 K3 (8, 25088, 512) per call (bound {k3_bound[0] * 1e3:.2f} us by {k3_bound[1]}): on the "
-        f"device (graph replay) f32 {fmt(k3_dev[8, 'f32'])}, bf16 {fmt(k3_dev[8, 'bf16'])}, f32 again "
-        f"{fmt(k3_again)}; from Python f32 {fmt(k3_ms[8, 'f32'])}, bf16 {fmt(k3_ms[8, 'bf16'])}; plain f32 "
-        f"{fmt(plain_ms['f32'])}, bf16 {fmt(plain_ms['bf16'])}; {lib_line} {card}"
+        f"device (graph replay) warm L2 f32 {fmt(k3_dev[8, 'f32'])}, bf16 {fmt(k3_dev[8, 'bf16'])}, f32 again "
+        f"{fmt(k3_again)}; cold L2 f32 {fmt(k3_cold[8, 'f32'])} ({k3_cold[8, 'f32'][0] / k3_bound[0]:.2f}x the "
+        f"bound), bf16 {fmt(k3_cold[8, 'bf16'])}; from Python f32 {fmt(k3_ms[8, 'f32'])}, bf16 "
+        f"{fmt(k3_ms[8, 'bf16'])}; plain f32 {fmt(plain_ms['f32'])}, bf16 {fmt(plain_ms['bf16'])}; {lib_line} {card}"
     )
     print(
-        f"phase 20 K3 (1, 25088, 512) per call: on the device f32 {fmt(k3_dev[1, 'f32'])}, bf16 "
-        f"{fmt(k3_dev[1, 'bf16'])}; from Python f32 {fmt(k3_ms[1, 'f32'])}, bf16 {fmt(k3_ms[1, 'bf16'])} {card}"
+        f"phase 20 K3 (1, 25088, 512) per call (bound {k3_b1_bound[0] * 1e3:.2f} us by {k3_b1_bound[1]}): on the "
+        f"device warm L2 f32 {fmt(k3_dev[1, 'f32'])}, bf16 {fmt(k3_dev[1, 'bf16'])}; cold L2 f32 "
+        f"{fmt(k3_cold[1, 'f32'])}, bf16 {fmt(k3_cold[1, 'bf16'])}; from Python f32 {fmt(k3_ms[1, 'f32'])}, bf16 "
+        f"{fmt(k3_ms[1, 'bf16'])} {card}"
     )
     print(
         f"phase 20 float fc F.linear (8, 25088) x (512, 25088) f32 (4x K3's weight bytes): on the device "
@@ -792,11 +925,17 @@ def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs):
             "replaces": "rs_face_detection_tpu/ops/quantize.py:210",
             "max_abs_err": k3_err,
             "ms": k3_dev[8, "f32"][0],
+            "cold_ms": k3_cold[8, "f32"][0],
+            "b1_cold_ms": k3_cold[1, "f32"][0],
+            "bf16_cold_ms": k3_cold[8, "bf16"][0],
             "python_ms": k3_ms[8, "f32"][0],
             "plain_ms": plain_ms["f32"][0],
             "bound_ms": k3_bound[0],
             "bound_by": k3_bound[1],
+            "cold_over_bound": k3_cold[8, "f32"][0] / k3_bound[0],
             "library_ms": None if lib_ms is None else lib_ms[0],
+            "library_dev_ms": None if lib_dev is None else lib_dev[0],
+            "timeline_us": {f"b{m}": t for m, t in timeline.items()},
         },
     }
 
@@ -870,10 +1009,12 @@ def main() -> int:
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
     sources = ("nms", "stem", "attention", "int8_matmul")
-    with ThreadPoolExecutor(max_workers=len(sources) + len(K1_VARIANTS)) as pool:
+    with ThreadPoolExecutor(max_workers=len(sources) + len(K1_VARIANTS) + 1) as pool:
         variant_jobs = [pool.submit(build_k1_variant, name) for name in K1_VARIANTS]
+        k3_job = pool.submit(build_k3_timeline)
         list(pool.map(build.build, sources))
         k1_variants = dict(job.result() for job in variant_jobs)
+        k3_timeline_so = k3_job.result()
     report = []
     for name in sources:
         build.load(name)
@@ -1259,7 +1400,7 @@ def main() -> int:
     by_path["ekyc"] = ekyc["counts"]
     fas_pairs = [(f, r.selected_face_box) for f, r in zip(frames, flat) if r.selected_face_box is not None]
     check(len(fas_pairs) > 0, "phase 5 selected no face for the anti-spoofing phase")
-    int8 = int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs[:BATCH])
+    int8 = int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs[:BATCH], k3_timeline_so)
     by_path["int8_extract"] = int8["counts"]
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))

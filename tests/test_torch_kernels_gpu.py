@@ -252,26 +252,88 @@ def _scale_bound(x, q, s, bf16):
     return xt.double().abs() @ w.double().abs()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("compute", ["f32", "bf16"])
-@pytest.mark.parametrize(
-    "shape", [(8, 25088, 512), (1, 25088, 512), (3, 1000, 96), (5, 4095, 130), (0, 64, 32)], ids=str
-)
-def test_int8_matmul_kernel_matches_plain_on_the_card(cuda, shape, compute):
-    """K3 against the plain version on the same inputs: within 1e-5 of
-    sum_k |x_k w_kn| (f32 sums in another order); M = 0 launches nothing."""
+def _check_int8_matmul(dev, x, q, s, compute, qt=None):
+    """One launch (none at M = 0); within 1e-5 of sum_k |x_k w_kn| of the
+    plain version on the same inputs (f32 sums in another order), TF32 off.
+    Returns the kernel's output."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        x, q, s = _operands(shape, 6)
-        xt, qt, st = (torch.from_numpy(a).to(cuda) for a in (x, q, s))
+        xt, st = torch.from_numpy(x).to(dev), torch.from_numpy(s).to(dev)
+        qt = torch.from_numpy(q).to(dev) if qt is None else qt
         before = k3.launches
         got = k3.int8_matmul_cuda(xt, qt, st, compute)
         want = quantize.int8_matmul_plain(xt, qt, st, compute)
         torch.cuda.synchronize()
-        assert k3.launches == before + (shape[0] > 0)
-        assert got.shape == want.shape
-        bound = 1e-5 * _scale_bound(x, q, s, compute == "bf16").to(cuda)
+        assert k3.launches == before + (x.shape[0] > 0)
+        assert got.shape == want.shape and got.dtype == torch.float32
+        bound = 1e-5 * _scale_bound(x, q, s, compute == "bf16").to(dev)
         assert bool(((got - want).abs().double() <= bound).all())
+        return got
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "shape",
+    [(8, 25088, 512), (1, 25088, 512), (3, 1000, 96), (5, 4095, 130), (0, 64, 32),
+     (2, 25088, 512), (9, 25088, 512), (17, 4095, 512), (33, 25088, 512),
+     (5, 17, 96), (5, 4095, 96), (3, 1000, 1), (3, 1000, 15), (3, 1000, 130)],
+    ids=str,
+)
+def test_int8_matmul_kernel_matches_plain_on_the_card(cuda, shape, compute):
+    """K3 against the plain version on the same inputs: within 1e-5 of
+    sum_k |x_k w_kn|; M = 0 launches nothing.  The shapes take every row
+    tile (M = 1, 2, 8, 9, 17, 33), a ragged K tail (17, 4095) and ragged
+    column tiles (N = 1, 15, 130: byte loads into the ring)."""
+    _check_int8_matmul(cuda, *_operands(shape, 6), compute)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_int8_matmul_kernel_all_positive(cuda, compute):
+    """All-positive x and q at the fc's shape: every product adds, the case
+    where the tensor cores' truncating adds lose the most."""
+    rng = np.random.default_rng(7)
+    x = rng.uniform(0, 1, size=(8, 25088)).astype(np.float32)
+    q, s = quantize.quantize_array(rng.uniform(0, 0.05, size=(25088, 512)).astype(np.float32))
+    _check_int8_matmul(cuda, x, q, s, compute)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_int8_matmul_kernel_misaligned_q(cuda, compute):
+    """A contiguous q one byte past a 16-byte boundary: byte loads."""
+    x, q, s = _operands((5, 1000, 96), 8)
+    buf = torch.empty(q.size + 1, dtype=torch.int8, device=cuda)
+    qt = buf[1:].view(q.shape)
+    qt.copy_(torch.from_numpy(q))
+    assert qt.is_contiguous() and qt.data_ptr() % 16 == 1
+    _check_int8_matmul(cuda, x, q, s, compute, qt=qt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("compute", ["f32", "bf16"])
+def test_int8_matmul_kernel_repeats_and_graph(cuda, compute):
+    """Two calls give the same bits (the K chunks are summed in a fixed
+    order, no float atomics), and a call captured in a CUDA graph and
+    replayed gives the eager call's bits (no host sync, no per-call host
+    state)."""
+    x, q, s = (torch.from_numpy(a).to(cuda) for a in _operands((8, 25088, 512), 9))
+    first = k3.int8_matmul_cuda(x, q, s, compute)
+    second = k3.int8_matmul_cuda(x, q, s, compute)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture
+        k3.int8_matmul_cuda(x, q, s, compute)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k3.int8_matmul_cuda(x, q, s, compute)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(captured, first)
