@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main paths once on a CUDA card: face-ID, eKYC and
-the weight-only int8 FaceExtraction.
+"""Drive the PyTorch port's main paths once on a CUDA card: face-ID, eKYC, the
+weight-only int8 FaceExtraction and checkpoint serving through the registry.
 
 Run from the root of a checkout, with one card:
 
@@ -108,12 +108,34 @@ and the last line is never printed):
      subprocess (tests/conftest.py imports JAX, which the card's machine
      need not have); it fails unless pytest exits 0, nothing is skipped and
      every collected test passed;
+ 22. checkpoint serving at full width, in a temporary RSFD_CHECKPOINT_DIR
+     under _build/ with fresh registries: (a) the trained 640 detector
+     written by save_imported and served as face_detection_retina.npz, its
+     detect_batch torch.equal to phase 5's detector on phase 5's canvases,
+     FacePipeline(registry=...) extract_batch b8 with the seeded builders'
+     heads and with phase 5's heads through models=, both equal to phase 5's
+     results, and the registry's statistics exact; (b) seeded state_dicts
+     in every public layout at full width (insightface IResNet-50 for
+     face_identification and face_id, torchvision ResNet-18 heads with 4, 2,
+     2 and 1 outputs, the four Silent-Face MiniFASNets, one OpenAI CLIP
+     ViT-L/14 with a 2-class head for both FAS towers, an mmdet SCRFD at the
+     SCRFD-10G-KPS widths), detect_kind, import_state_dict, save_imported,
+     each file's bytes and its import, save and load seconds; EKYCPipeline
+     (registry=...) on 3 pairs torch.equal to the pipeline built from the
+     same modules (48 K4 and 2 K1 launches per verify), the staged modules
+     equal to direct ones; (c) a biubug6-layout R50 with a 7x7 stem served
+     at 640, detect_batch b8 torch.equal to load_retinaface_state_dict's module
+     with one K2 launch, and FaceExtraction(quantized=True, registry=...) b8
+     with one K3 launch; (d) a Gallery of 100,000 seeded rows plus the
+     fixture face on the card, identify b8 at k = 5 against the CPU's, and
+     its time per call;
 then a JSON line of the kernels, with each one's bound on the card, its
 time on the device as ``ms`` and from Python as ``python_ms``, and
 {"ok": true, "device": ...} last.
 Every count a phase checks is set to 0 just before its path runs.  The
-four main paths (phases 5, 9, 15 and 18) set all four kernels' counts to 0
-and read all four after, and the kernels line reports exactly those reads.
+main paths (phases 5, 9, 15, 18 and each counted run of 22) set all four
+kernels' counts to 0 and read all four after, and the kernels line reports
+exactly those reads.
 
 Frames are composited from tests/fixtures/real_face_crop.npz (the face of
 tests/fixtures/real_face.jpg, box (172, 125, 372, 340), resized to 160x160)
@@ -403,13 +425,13 @@ def ekyc_phases(dev, rng, face, card):
     from rs_face_detection_tpu_torch.kernels import attention as katt
     from rs_face_detection_tpu_torch.kernels import nms as knms
     from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.models.registry import EKYC_FAMILIES
     from rs_face_detection_tpu_torch.models.vit import cast_for_serving
     from rs_face_detection_tpu_torch.ops.attention import attention_plain
     from rs_face_detection_tpu_torch.ops.image import letterbox, letterbox_u8_batch
     from rs_face_detection_tpu_torch.ops.nms import nms_mask_plain
     from rs_face_detection_tpu_torch.pipeline.detection import topk_candidates
     from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import (
-        DEFAULT_FAMILIES,
         EKYCPipeline,
         EKYCResult,
         SCRFDDetection,
@@ -518,15 +540,15 @@ def ekyc_phases(dev, rng, face, card):
 
     # 15. The eKYC main path: bf16 towers, counted.
     sds = {name: scrfd_sd if fam == "scrfd" else clip_sd if fam == "clip_l14" else None
-           for name, fam in DEFAULT_FAMILIES.items()}
-    for name, fam in DEFAULT_FAMILIES.items():
+           for name, fam in EKYC_FAMILIES.items()}
+    for name, fam in EKYC_FAMILIES.items():
         if sds[name] is None:
             sds[name] = weights.init_state(fam, SEED, 2)
 
     def models(tower_dtype):
-        out = {name: weights.load_model(DEFAULT_FAMILIES[name], sd) for name, sd in sds.items()}
+        out = {name: weights.load_model(EKYC_FAMILIES[name], sd) for name, sd in sds.items()}
         if tower_dtype == torch.bfloat16:
-            for name, fam in DEFAULT_FAMILIES.items():
+            for name, fam in EKYC_FAMILIES.items():
                 if fam == "clip_l14":
                     cast_for_serving(out[name])
         return out
@@ -938,6 +960,340 @@ def int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs, k3_timeline_so=None
             "timeline_us": {f"b{m}": t for m, t in timeline.items()},
         },
     }
+
+
+#: The widths of insightface's SCRFD-10G-KPS (configs/scrfd/scrfd_10g_bnkps.py)
+#: as the importer expresses them: the deep stem 28/28/56, BasicBlock stages
+#: (3, 4, 2, 3) of planes (56, 88, 88, 224), the PAFPN from stage 1 at 56
+#: channels, a 3-conv BatchNorm head of 80 channels, 2 anchors, keypoints.
+#: The importer (the JAX package's, which the port mirrors) takes one head
+#: tower shared by the strides, with separate cls and reg stacks, and conv
+#: shortcuts; the 10G config shares cls with reg, keeps one tower per stride
+#: and average-pools its shortcuts (ResNetV1e), which it cannot express.
+SCRFD_10G = dict(
+    deep_stem=True, stem_channels=(28, 28, 56), block="basic", stage_blocks=(3, 4, 2, 3),
+    stage_planes=(56, 88, 88, 224), neck_in_start=1, neck_out=56, num_levels=3, stacked_convs=3,
+    head_channels=80, num_anchors=2, use_kps=True, head_norm="bn", gn_groups=32,
+)
+
+
+def checkpoint_phase(dev, rng, face, card, p5):
+    """Phase 22: checkpoint serving at full width, in a temporary
+    RSFD_CHECKPOINT_DIR under _build/ with fresh registries.  ``p5``: phase
+    5's config, detector weights, pipeline, requests and its first request's
+    results.  Returns
+    the launch counts of its counted runs and its seconds."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from rs_face_detection_tpu_torch.configs import FaceAntiSpoofingConfig
+    from rs_face_detection_tpu_torch.kernels import build
+    from rs_face_detection_tpu_torch.models import checkpoint_io, weights
+    from rs_face_detection_tpu_torch.models.checkpoint_maps import load_retinaface_state_dict
+    from rs_face_detection_tpu_torch.models.registry import standard_registry
+    from rs_face_detection_tpu_torch.models.scrfd_import import SCRFDImportSpec, init_scrfd_imported
+    from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch
+    from rs_face_detection_tpu_torch.ops.matching import Gallery, search
+    from rs_face_detection_tpu_torch.pipeline.antispoofing import FaceAntiSpoofing
+    from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
+    from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import EKYCPipeline
+    from rs_face_detection_tpu_torch.pipeline.extraction import FaceExtraction
+    from rs_face_detection_tpu_torch.pipeline.face_pipeline import FacePipeline
+    from rs_face_detection_tpu_torch.pipeline.quality import FaceQuality
+    from rs_face_detection_tpu_torch.pipeline.quality_assessment import FaceQualityAssessment
+
+    t_phase = time.perf_counter()
+    cfg, pipe5 = p5["cfg"], p5["pipe"]
+    env = checkpoint_io.CHECKPOINT_DIR_ENV
+    saved_env = os.environ.get(env)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="checkpoints-", dir=build.BUILD_DIR)
+    totals = dict.fromkeys(kernel_counters(), 0)
+    files = {}  # name -> [bytes, import s, save s, load s]
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        for k, v in counts.items():
+            totals[k] += v
+        return out, counts
+
+    def save(directory, name, model, meta, import_s, links=(), label=None):
+        path = os.path.join(directory, f"{name}.npz")
+        t0 = time.perf_counter()
+        checkpoint_io.save_imported(path, model, meta)
+        files[label or name] = [os.path.getsize(path), import_s, time.perf_counter() - t0, None]
+        for other in links:  # one file serves both names
+            os.symlink(path, os.path.join(directory, f"{other}.npz"))
+
+    def load(registry, names):
+        for name in names:
+            t0 = time.perf_counter()
+            registry.load(name)
+            torch.cuda.synchronize()
+            files[name][3] = time.perf_counter() - t0
+
+    def canvases(frames):
+        width, height = cfg.detection.image_size
+        imgs, scales = letterbox_u8_batch(frames, width, height, dev)
+        return imgs, torch.from_numpy(np.asarray(scales, np.float32))
+
+    def same_result(a, b):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+                if not (x is not None and y is not None and np.array_equal(x, y)):
+                    return False
+            elif x != y:
+                return False
+        return True
+
+    def stats(registry, name):
+        st = registry.statistics(name)
+        return st.inference_count, st.execution_count, st.batch_size_counts
+
+    try:
+        os.environ[env] = root
+        # (a) The trained detector through the registry.
+        t0 = time.perf_counter()
+        det_model = weights.load_model("retinaface_mobilenet025", p5["det_sd"])
+        det_meta = {"family": "retinaface", "backbone": "mobilenet025", "stem_s2d": False, "image_size": [640, 640]}
+        save(root, cfg.detection.model_name, det_model, det_meta, time.perf_counter() - t0)
+        check(os.listdir(root) == [f"{cfg.detection.model_name}.npz"], f"phase 22: {os.listdir(root)}")
+        reg_a = standard_registry(device=dev)
+        load(reg_a, [cfg.detection.model_name])
+        det = RetinaFaceDetection(cfg.detection, device=dev, registry=reg_a)
+        check(det.model is reg_a.get(cfg.detection.model_name), "phase 22: the detector is not the registry's")
+        for k, v in det.model.state_dict().items():
+            check(torch.equal(v.cpu(), p5["det_sd"][k].to(v.dtype)), f"phase 22: served detector {k} != the fixture's")
+        batches = [canvases(req) for req in p5["requests"]]
+        served, k1a = counted(lambda: [det.detect_batch(c, s) for c, s in batches])
+        check(k1a["nms_mask"] == len(batches), f"phase 22: K1 launched {k1a['nms_mask']} for {len(batches)} detects")
+        for (c, s), got in zip(batches, served):
+            want = pipe5.face_detection.detect_batch(c, s)
+            check(all(torch.equal(g, w) for g, w in zip(got, want)), "phase 22: served detector != phase 5's")
+        seeded = FacePipeline(cfg, device=dev, registry=reg_a)
+        for mine, theirs in ((seeded.quality_model, pipe5.quality_model), (seeded.embedding_model, pipe5.embedding_model)):
+            check(all(torch.equal(a, b) for a, b in zip(mine.state_dict().values(), theirs.state_dict().values())),
+                  "phase 22: a seeded builder's head != phase 5's")
+        seeded_out, _ = counted(lambda: seeded.extract_batch(p5["requests"][0]))
+        heads5 = {cfg.quality.model_name: pipe5.quality_model, cfg.identification.model_name: pipe5.embedding_model}
+        mixed = FacePipeline(cfg, models=heads5, device=dev, registry=reg_a)
+        mixed_out, _ = counted(lambda: mixed.extract_batch(p5["requests"][0]))
+        check(all(same_result(g, w) for g, w in zip(mixed_out, p5["results0"])), "phase 22: (a) != phase 5's results")
+        check(all(same_result(g, w) for g, w in zip(seeded_out, p5["results0"])), "phase 22: seeded heads != phase 5")
+        k = sum(r.facial_feature is not None for r in seeded_out)
+        det_stats = stats(reg_a, cfg.detection.model_name)
+        check(det_stats == (2 * BATCH, 2, {BATCH: 2}), f"phase 22: detector statistics {det_stats}")
+        for name in (cfg.quality.model_name, cfg.identification.model_name):
+            check(stats(reg_a, name) == ((k, 1, {k: 1}) if k else (0, 0, {})), f"phase 22: {name} {stats(reg_a, name)}")
+        fixture_emb = next(r.facial_feature for r in mixed_out if r.facial_feature is not None)
+        print(
+            f"phase 22 (a) trained detector served from {cfg.detection.model_name}.npz "
+            f"({files[cfg.detection.model_name][0]} bytes, f32): detect_batch on phase 5's 3 x 8 canvases "
+            f"torch.equal to phase 5's detector ({k1a['nms_mask']} K1 launches); FacePipeline(registry=...) "
+            f"extract_batch b8 with the seeded builders' heads (equal to phase 5's) and with phase 5's heads "
+            f"through models=: equal to phase 5's results ({k} faces embedded); statistics {det_stats}"
+        )
+
+        # (b) Every public layout at full width, imported, saved and served.
+        fas_cfg = FaceAntiSpoofingConfig()
+        spec_10g = SCRFDImportSpec(**SCRFD_10G)
+
+        def public(name):
+            """(seeded state_dict in the public key layout, kind, import keywords, linked names)."""
+            np_sd = lambda sd: {k: v.numpy() for k, v in sd.items()}  # noqa: E731
+            if name == "face_identification":
+                return np_sd(weights.init_state("iresnet50", 11)), "iresnet", {}, ("face_id",)
+            classifiers = {"face_quality": (12, 4), "face_attribute": (13, 2), "face_quality_vp": (14, 2),
+                           "face_quality_assetment": (15, 1)}
+            if name in classifiers:
+                seed, n = classifiers[name]
+                return np_sd(weights.init_state("resnet18_classifier", seed, n)), "resnet18", \
+                    {"softmax": n != 1}, ()
+            if name in fas_cfg.model_names:
+                i = fas_cfg.model_names.index(name)
+                size = fas_cfg.image_sizes[i][0]
+                return np_sd(weights.init_state("minifasnet", 16 + i, 3, image_size=size)), "minifas", {}, ()
+            if name == "face_anti_spoofing_crop_l14":
+                sd = weights.init_state("clip_l14", 20, 2)
+                return ({(k if k.startswith("head.") else f"visual.{k}"): v.numpy() for k, v in sd.items()},
+                        "clip_visual", {}, ("face_anti_spoofing_fi_l14",))
+            if name == "scrfd":
+                return np_sd(init_scrfd_imported(spec_10g, seed=21).state_dict()), "scrfd", {}, ()
+            raise AssertionError(name)
+
+        names = ["face_identification", "face_quality", "face_attribute", "face_quality_vp",
+                 "face_quality_assetment", *fas_cfg.model_names, "face_anti_spoofing_crop_l14", "scrfd"]
+        kinds, sds = {}, {}
+        for name in names:
+            sd, kind, kw, links = public(name)
+            sds[name] = sd
+            kinds[name] = checkpoint_io.detect_kind(sd)
+            check(kinds[name] == kind, f"phase 22: detect_kind named {kinds[name]} for {name}'s {kind}")
+            t0 = time.perf_counter()
+            model, meta = checkpoint_io.import_state_dict(sd, kind="auto", **kw)
+            save(root, name, model, meta, time.perf_counter() - t0, links)
+            for other in links:
+                files[other] = [name, None, None, None]
+            del model
+        reg_b = standard_registry(device=dev)
+        served_names = [cfg.detection.model_name, *names, "face_id", "face_anti_spoofing_fi_l14"]
+        load(reg_b, served_names)
+        for name, sd in sds.items():  # the served weights are the public tensors
+            for key, v in reg_b.get(name).state_dict().items():
+                if key.endswith("num_batches_tracked"):
+                    continue
+                ref = sd[key if key in sd else f"visual.{key}"]
+                check(torch.equal(v.cpu(), torch.from_numpy(np.asarray(ref)).to(v.dtype)), f"phase 22: {name} {key}")
+        del sds, sd
+        check(type(reg_b.get("scrfd")).__name__ == "SCRFDImportedNet", "phase 22: scrfd is not the mmdet network")
+        check(reg_b.get("face_anti_spoofing_fi_l14").conv1.weight.dtype == torch.bfloat16, "phase 22: tower not bf16")
+
+        pairs = ekyc_pairs(rng, face, 3)
+        ekyc_names = ("scrfd", "face_id", "face_attribute", "face_quality_vp", "face_anti_spoofing_crop_l14",
+                      "face_anti_spoofing_fi_l14")
+        direct = EKYCPipeline(models={n: reg_b.get(n) for n in ekyc_names}, device=dev)
+        direct.verify_images(*pairs[0])  # warm-up, outside the counted run and the statistics
+        want = [direct.verify_images(c, s) for c, s in pairs]
+        ekyc = EKYCPipeline(device=dev, registry=reg_b)
+        got, ekyc_counts = counted(lambda: [ekyc.verify_images(c, s) for c, s in pairs])
+        check(all(same_result(g, w) for g, w in zip(got, want)), "phase 22: EKYCPipeline(registry=...) != direct")
+        check(ekyc_counts["flash_attention"] == 48 * len(pairs) and ekyc_counts["nms_mask"] == 2 * len(pairs)
+              and ekyc_counts["fused_stem"] == ekyc_counts["int8_matmul"] == 0, f"phase 22: eKYC {ekyc_counts}")
+        check(stats(reg_b, "scrfd") == (2 * len(pairs), 2 * len(pairs), {1: 2 * len(pairs)}),
+              f"phase 22: scrfd statistics {stats(reg_b, 'scrfd')}")
+        crops = make_crops(rng, BATCH, face)
+        fas_imgs, fas_boxes = [img for img, _ in p5["fas_pairs"]], [box for _, box in p5["fas_pairs"]]
+        staged = [
+            (FaceQuality(device=dev, registry=reg_b), FaceQuality(model=reg_b.get("face_quality"), device=dev),
+             lambda m: m.probabilities(crops)),
+            (FaceQualityAssessment(device=dev, registry=reg_b),
+             FaceQualityAssessment(model=reg_b.get("face_quality_assetment"), device=dev), lambda m: m(crops)),
+            (FaceAntiSpoofing(device=dev, registry=reg_b),
+             FaceAntiSpoofing(models=[reg_b.get(n) for n in fas_cfg.model_names], device=dev),
+             lambda m: m(fas_imgs, fas_boxes)),
+        ]
+        for mine, theirs, call in staged:
+            a, b = call(mine), call(theirs)
+            check(all(np.array_equal(x, y) for x, y in zip(a, b)) if isinstance(a, tuple) else np.array_equal(a, b),
+                  f"phase 22: {type(mine).__name__}(registry=...) != direct")
+        check(stats(reg_b, "face_quality") == (BATCH, 1, {BATCH: 1}), f"phase 22: {stats(reg_b, 'face_quality')}")
+        full = FacePipeline(cfg, device=dev, registry=reg_b)
+        full_out, full_counts = counted(lambda: full.extract_batch(p5["requests"][0]))
+        check(all(r.facial_feature is None or np.isfinite(r.facial_feature).all() for r in full_out),
+              "phase 22: FacePipeline on the imported heads gave a non-finite embedding")
+        print(
+            f"phase 22 (b) {len(names)} public state_dicts at full width (seeded tensors), detect_kind "
+            f"{sorted(set(kinds.values()))}, imported, saved and served by a fresh registry: EKYCPipeline(registry="
+            f"...) 3 x verify_images torch.equal to the pipeline built from the same modules; launches {ekyc_counts}; "
+            f"scrfd statistics {stats(reg_b, 'scrfd')}; FaceQuality, FaceQualityAssessment and FaceAntiSpoofing "
+            f"equal to direct; FacePipeline on the served detector and heads, launches {full_counts}; SCRFD at the "
+            f"SCRFD-10G-KPS widths {SCRFD_10G['stem_channels']}/{SCRFD_10G['stage_planes']}/neck "
+            f"{SCRFD_10G['neck_out']}/head {SCRFD_10G['head_channels']}, one tower shared by the strides with "
+            f"separate cls and reg stacks and conv shortcuts (the importer's form; the 10G config shares cls with "
+            f"reg per stride and average-pools its shortcuts)"
+        )
+        for name, (size, import_s, save_s, load_s) in files.items():
+            if isinstance(size, str):  # a symlink to another name's file
+                print(f"phase 22 file {name}.npz: a link to {size}.npz; registry load {load_s:.3f} s {card}")
+            else:
+                print(f"phase 22 file {name}.npz: {size} bytes; import {import_s:.3f} s, save {save_s:.3f} s, "
+                      f"registry load {load_s:.3f} s {card}")
+
+        # (c) The R50 and int8 paths.
+        r50_dir = tempfile.mkdtemp(prefix="r50-", dir=root)
+        r50_sd = {k: v.numpy() for k, v in weights.init_state("retinaface_resnet50", 22).items()}
+        r50_sd["body.conv1.weight"] = (rng.standard_normal((64, 3, 7, 7)) / np.sqrt(147)).astype(np.float32)
+        check(checkpoint_io.detect_kind(r50_sd) == "retinaface_resnet50", "phase 22: R50 kind")
+        t0 = time.perf_counter()
+        r50_model, r50_meta = checkpoint_io.import_state_dict(r50_sd)
+        save(r50_dir, cfg.detection.model_name, r50_model, r50_meta, time.perf_counter() - t0, label="r50")
+        r50_cfg = dataclasses.replace(cfg.detection, backbone="resnet50")
+        os.environ[env] = r50_dir
+        reg_c = standard_registry(device=dev, detection=r50_cfg)
+        r50_det = RetinaFaceDetection(r50_cfg, device=dev, registry=reg_c)
+        os.environ[env] = root
+        ref_det = RetinaFaceDetection(
+            r50_cfg, weights.load_model("retinaface_resnet50", load_retinaface_state_dict(r50_sd, "resnet50")),
+            device=dev,
+        )
+        c, s = batches[1]
+        r50_out, r50_counts = counted(lambda: r50_det.detect_batch(c, s))
+        check(r50_counts["fused_stem"] == 1 and r50_counts["nms_mask"] == 1, f"phase 22: R50 {r50_counts}")
+        check(all(torch.equal(g, w) for g, w in zip(r50_out, ref_det.detect_batch(c, s))),
+              "phase 22: the served R50 != load_retinaface_state_dict's")
+        fe = FaceExtraction(device=dev, quantized=True, registry=reg_b)
+        emb, fe_counts = counted(lambda: fe(crops))
+        check(fe_counts["int8_matmul"] == 1, f"phase 22: int8 FaceExtraction {fe_counts}")
+        check(np.array_equal(emb, FaceExtraction(model=reg_b.get("face_identification"), device=dev, quantized=True)(crops)),
+              "phase 22: int8 FaceExtraction(registry=...) != direct")
+        k_full = sum(r.facial_feature is not None for r in full_out)
+        check(stats(reg_b, "face_identification")[0] == k_full + BATCH, "phase 22: face_identification statistics")
+        print(
+            f"phase 22 (c) biubug6-layout R50 (7x7 stem) imported ({files['r50'][0]} bytes) "
+            f"and served at 640: detect_batch b8 torch.equal to load_retinaface_state_dict's module, launches "
+            f"{r50_counts}; FaceExtraction(quantized=True, registry=...) b8 on the served IResNet-50, launches "
+            f"{fe_counts}, equal to the direct int8 module"
+        )
+
+        # (d) Gallery on the card against the CPU (TF32 off).
+        n_rows = 100_000
+        rows = rng.standard_normal((n_rows, 512)).astype(np.float32)
+        galleries = (Gallery(512, device=dev), Gallery(512, device="cpu"))
+        t0 = time.perf_counter()
+        for g in galleries:
+            for i in range(n_rows):
+                g.enroll(i, rows[i])
+            g.enroll("fixture", fixture_emb)
+        enroll_s = (time.perf_counter() - t0) / 2
+        picks = rng.choice(n_rows, BATCH - 1, replace=False)
+        probes = np.concatenate([fixture_emb[None], rows[picks] + 0.3 * rng.standard_normal((BATCH - 1, 512))])
+        probes = probes.astype(np.float32)
+        got, want = galleries[0].identify(probes, -1.0, 5), galleries[1].identify(probes, -1.0, 5)
+        check(got[0][0][0] == "fixture" and want[0][0][0] == "fixture", "phase 22: the fixture face did not find itself")
+        unit = probes / np.linalg.norm(probes, axis=1, keepdims=True)
+        matrix = np.concatenate([rows / np.linalg.norm(rows, axis=1, keepdims=True), fixture_emb[None] / np.linalg.norm(fixture_emb)])
+        swaps, gal_err = 0, 0.0
+        for q, (g, w) in enumerate(zip(got, want)):
+            for (gl, gs), (wl, ws) in zip(g, w):
+                gal_err = max(gal_err, abs(gs - ws))
+                if gl != wl:  # a swap of candidates whose scores lie within 1e-5
+                    swaps += 1
+                    cpu_score = float(matrix[n_rows if gl == "fixture" else gl] @ unit[q])
+                    check(abs(cpu_score - ws) <= 1e-5, f"phase 22: Gallery label {gl} vs {wl} at probe {q}")
+        check(gal_err <= 1e-5, f"phase 22: Gallery scores card vs CPU {gal_err} > 1e-5")
+        galleries[0].identify(probes, -1.0, 5)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            galleries[0].identify(probes, -1.0, 5)
+        identify_ms = (time.perf_counter() - t0) / 20 * 1e3
+        probes_dev = torch.from_numpy(unit).to(dev)
+        search_ms = cuda_ms(lambda: search(probes_dev, galleries[0]._matrix, 5), 10)
+        search_bound = card_bound((n_rows + 1) * 512 * 4 + probes.nbytes, 2 * BATCH * 512 * (n_rows + 1), F32_OPS_PER_S)
+        print(
+            f"phase 22 (d) Gallery of {n_rows} seeded rows + the fixture face ({(n_rows + 1) * 512 * 4} bytes f32 on "
+            f"the card), identify b8 at k = 5, TF32 off: labels equal to the CPU's ({swaps} swaps of candidates "
+            f"within 1e-5), scores max abs err {gal_err:.3g} (<= 1e-5), the fixture face first at "
+            f"{got[0][0][1]:.6f}; enroll {enroll_s:.2f} s; identify {identify_ms:.3f} ms/call (host clock, 20 calls); "
+            f"search on the device {fmt(search_ms)} (bound {search_bound[0]:.4f} ms by {search_bound[1]}) {card}"
+        )
+    finally:
+        if saved_env is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = saved_env
+        shutil.rmtree(root, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 22 checkpoint serving: {seconds:.1f} s in all; launches {totals} {card}")
+    return {"counts": totals, "seconds": seconds}
 
 
 GPU_TESTS = ("-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-m", "gpu", "-rs",
@@ -1402,6 +1758,9 @@ def main() -> int:
     check(len(fas_pairs) > 0, "phase 5 selected no face for the anti-spoofing phase")
     int8 = int8_phases(dev, rng, face, card, e_sd, q_sd, fas_pairs[:BATCH], k3_timeline_so)
     by_path["int8_extract"] = int8["counts"]
+    p5 = {"cfg": cfg, "det_sd": det_sd, "pipe": pipe, "requests": requests, "results0": flat[:BATCH],
+          "fas_pairs": fas_pairs[:BATCH]}
+    by_path["checkpoint_serving"] = checkpoint_phase(dev, rng, face, card, p5)["counts"]
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .checkpoint_maps import strip_module_prefix
 from .layers import BN_EPS
 
 
@@ -202,11 +203,6 @@ class MiniFASNet(nn.Module):
         x = torch.flatten(self.conv_6_dw(self.conv_6_sep(x)), 1)  # (B, C, 1, 1): no permute
         x = self.prob(self.bn(self.linear(x)))
         return torch.softmax(x, dim=-1) if self.softmax else x
-
-
-def strip_module_prefix(state_dict: Mapping[str, Any]) -> Dict[str, Any]:
-    """Drop a leading 'module.' (DataParallel artifact) from every key."""
-    return {(k[len("module."):] if k.startswith("module.") else k): v for k, v in state_dict.items()}
 
 
 def _dw_spec_from_sd(sd: Mapping, prefix: str, stride: int, residual: bool) -> DWSpec:

@@ -120,12 +120,15 @@ class ViT(nn.Module):
     """Patchify -> CLS + pos embed [-> ln_pre] -> transformer -> head.
 
     Input (B, 3, S, S) normalized RGB with S = ``image_size``; output
-    (B, num_classes) probabilities in f32.
+    (B, num_classes) probabilities in f32 (logits without ``softmax``).
     """
 
-    def __init__(self, config: str = "clip_l14", num_classes: int = 2, image_size: int = 224) -> None:
+    def __init__(
+        self, config: str = "clip_l14", num_classes: int = 2, image_size: int = 224, softmax: bool = True
+    ) -> None:
         super().__init__()
         cfg = CONFIGS[config]
+        self.config, self.softmax = config, softmax
         if image_size % cfg.patch:
             raise ValueError(f"image size {image_size} is not a multiple of patch {cfg.patch}")
         width = cfg.width
@@ -153,7 +156,7 @@ class ViT(nn.Module):
         if self.proj is not None:
             x = x @ self.proj.float()
         logits = F.linear(x, self.head.weight.float(), self.head.bias.float())
-        return torch.softmax(logits, dim=-1)
+        return torch.softmax(logits, dim=-1) if self.softmax else logits
 
 
 def cast_for_serving(model: ViT) -> ViT:

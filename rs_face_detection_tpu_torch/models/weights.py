@@ -29,10 +29,10 @@ leaves) bridges to the int8 modules of models/quantized.py: the same layout
 maps move q (HWIO -> OIHW; ``fc``'s NHWC rows to NCHW, kept as (K, N)), s
 stays one f32 per output channel, and int8 stays int8.
 
-``state_dict_from_biubug6`` loads a public biubug6 ``Resnet50_Final.pth``
-state_dict into the port's RetinaFace-R50: the keys are already the port's,
-and the 7x7/s2 stem converts exactly to the s2d form
-(models/resnet.py::stem_to_s2d).
+Public PyTorch checkpoints (biubug6 ``Resnet50_Final.pth`` and the other
+public layouts) load through models/checkpoint_maps.py and
+models/checkpoint_io.py; ``flax_from_state_dict`` is the bridge turned
+round, which writes the JAX package's registry ``.npz``.
 """
 
 from __future__ import annotations
@@ -56,7 +56,6 @@ from .minifas import (
 )
 from .quantized import quantize_module
 from .resnet import STAGES as RESNET50_STAGES
-from .resnet import stem_to_s2d
 from .retinaface import RetinaFace
 from .scrfd import SCRFD
 from .vit import CONFIGS as VIT_CONFIGS
@@ -230,7 +229,7 @@ def vit_map(config: str) -> Dict[str, Tuple]:
         t, f = f"transformer.resblocks.{i}", f"params/block{i}"
         m[f"{f}/ln1"] = (f"{t}.ln_1", "norm")
         m[f"{f}/ln2"] = (f"{t}.ln_2", "norm")
-        m[f"{f}/attn"] = (f"{t}.attn", "attention")
+        m[f"{f}/attn"] = (f"{t}.attn", "attention", cfg.heads)
         m[f"{f}/fc1"] = (f"{t}.mlp.c_fc", "dense")
         m[f"{f}/fc2"] = (f"{t}.mlp.c_proj", "dense")
     return m
@@ -356,11 +355,13 @@ def _hwio_to_oihw(k: np.ndarray) -> np.ndarray:
 
 
 def state_dict_from_jax(
-    family: str, source: Any, spec: MiniFASNetSpec | None = None
+    family: str, source: Any, spec: MiniFASNetSpec | None = None, mapping: Mapping[str, Tuple] | None = None
 ) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a family from JAX variables or an .npz
-    (``spec``: a MiniFASNet's architecture).  A quantized kernel gives the
-    int8 modules' ``weight_q``/``weight_scale``.
+    (``spec``: a MiniFASNet's architecture; ``mapping``: an explicit map,
+    for the modules whose map depends on more than a family, such as
+    models/scrfd_import.py's).  A quantized kernel gives the int8 modules'
+    ``weight_q``/``weight_scale``.
 
     Raises if a JAX leaf goes unused, so a layout drift cannot pass silently.
     """
@@ -371,7 +372,7 @@ def state_dict_from_jax(
     }
     used = set()
     sd: Dict[str, torch.Tensor] = {}
-    for path, entry in mapping_for(family, spec).items():
+    for path, entry in (mapping if mapping is not None else mapping_for(family, spec)).items():
         key, kind = entry[0], entry[1]
         names = leaves_of(path, kind)
         used.update(names)
@@ -428,6 +429,63 @@ def state_dict_from_jax(
     return sd
 
 
+def flax_from_state_dict(mapping: Mapping[str, Tuple], state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The inverse of state_dict_from_jax: '/'-joined float32 flax leaves from
+    a float state_dict of the port, by a family's map (``mapping_for``).
+    Raises if a tensor goes unused (``num_batches_tracked`` aside)."""
+    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    used = set()
+    flat: Dict[str, np.ndarray] = {}
+
+    def take(key: str) -> np.ndarray:
+        used.add(key)
+        return sd[key]
+
+    for path, entry in mapping.items():
+        key, kind = entry[0], entry[1]
+        names = leaves_of(path, kind)
+        if kind == "conv":
+            values = [take(f"{key}.weight").transpose(2, 3, 1, 0)]
+        elif kind == "conv_bias":
+            values = [take(f"{key}.weight").transpose(2, 3, 1, 0), take(f"{key}.bias")]
+        elif kind == "dense":
+            values = [take(f"{key}.weight").T, take(f"{key}.bias")]
+        elif kind == "dense_nobias":
+            values = [take(f"{key}.weight").T]
+        elif kind == "dense_nchw":
+            c, h, w = entry[2]
+            weight = take(f"{key}.weight")  # (out, c*h*w), NCHW order
+            values = [weight.reshape(-1, c, h, w).transpose(0, 2, 3, 1).reshape(weight.shape[0], -1).T,
+                      take(f"{key}.bias")]
+        elif kind == "bn":
+            values = [take(f"{key}.{s}") for s in ("weight", "bias", "running_mean", "running_var")]
+        elif kind == "raw":
+            values = [take(key)]
+        elif kind == "flat":
+            values = [take(key).reshape(1, 1, -1)]
+        elif kind == "squeeze0":
+            values = [take(key)[None]]
+        elif kind == "norm":
+            values = [take(f"{key}.weight"), take(f"{key}.bias")]
+        elif kind == "attention":
+            heads = entry[2]
+            in_w, in_b = take(f"{key}.in_proj_weight"), take(f"{key}.in_proj_bias")
+            out_w = take(f"{key}.out_proj.weight")  # (W, W): out = o @ out_w.T
+            width = in_w.shape[1]
+            values = []
+            for j in range(3):  # query, key, value
+                values.append(in_w[j * width : (j + 1) * width].T.reshape(width, heads, -1))
+                values.append(in_b[j * width : (j + 1) * width].reshape(heads, -1))
+            values += [out_w.T.reshape(heads, -1, width), take(f"{key}.out_proj.bias")]
+        else:
+            raise ValueError(f"unknown kind {kind!r} for {path}")
+        flat.update(zip(names, (np.array(v, dtype=np.float32) for v in values)))
+    unused = sorted(k for k in sd if k not in used and not k.endswith("num_batches_tracked"))
+    if unused:
+        raise ValueError(f"state_dict tensors not mapped: {unused[:8]}")
+    return flat
+
+
 def init_state(
     family: str, seed: int, num_outputs: int = 4, image_size: int = 224
 ) -> Dict[str, torch.Tensor]:
@@ -437,8 +495,13 @@ def init_state(
     and ``proj`` N(0, 1/fan_in) and its CLS token and position embedding
     N(0, 0.02^2) -- flax's default initializers and the ViT's own, drawn
     from numpy.  ``image_size``: a ViT's or a MiniFASNet's input size."""
+    return seeded_state(build_model(family, num_outputs, image_size), seed)
+
+
+def seeded_state(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
+    """``init_state``'s distributions for any module built of these layers
+    (models/heads.py's SmallCNN, models/scrfd_import.py's network)."""
     rng = np.random.default_rng(seed)
-    model = build_model(family, num_outputs, image_size)
     sd: Dict[str, torch.Tensor] = {}
 
     def normal(shape, fan_in: int) -> torch.Tensor:
@@ -475,8 +538,10 @@ def init_state(
             sd[name] = normal(shape, shape[0])
         elif name in ("class_embedding", "positional_embedding"):
             sd[name] = _tensor(rng.normal(0.0, 0.02, size=shape).astype(np.float32))
+        elif name.endswith(".scale"):  # an mmdet Scale: 1, as flax's ones initializer
+            sd[name] = torch.ones(shape)
         else:
-            raise ValueError(f"{family}: no initializer for {name}")
+            raise ValueError(f"{type(model).__name__}: no initializer for {name}")
     return sd
 
 
@@ -508,33 +573,3 @@ def load_model(family: str, state_dict: Dict[str, torch.Tensor], softmax: bool =
         quantize_module(model)
     model.load_state_dict(state_dict, strict=True)
     return model
-
-
-def state_dict_from_biubug6(family: str, state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The port's state_dict from a biubug6 Pytorch_Retinaface checkpoint
-    (``Resnet50_Final.pth`` for ``retinaface_resnet50``).
-
-    Keys may carry DataParallel's ``module.`` prefix.  The R50's 7x7/s2
-    ``body.conv1`` (64, 3, 7, 7) becomes the s2d (64, 12, 4, 4) kernel; every
-    other tensor keeps its key.  Raises on a missing or an extra key.
-    """
-    if family != "retinaface_resnet50":
-        raise ValueError(f"state_dict_from_biubug6 loads retinaface_resnet50, not {family!r}")
-    sd = {
-        (k[len("module."):] if k.startswith("module.") else k): torch.as_tensor(np.asarray(v))
-        for k, v in state_dict.items()
-    }
-    stem = sd["body.conv1.weight"].numpy()
-    if stem.shape[1:] == (3, 7, 7):
-        hwio = stem_to_s2d(stem.transpose(2, 3, 1, 0))
-        sd["body.conv1.weight"] = _tensor(hwio.transpose(3, 2, 0, 1))
-    want = build_model(family).state_dict()
-    missing = sorted(set(want) - set(sd))
-    extra = sorted(set(sd) - set(want))
-    if missing or extra:
-        raise ValueError(f"{family}: missing keys {missing[:8]}, extra keys {extra[:8]}")
-    for k, v in want.items():
-        if tuple(sd[k].shape) != tuple(v.shape):
-            raise ValueError(f"{family}: {k} has shape {tuple(sd[k].shape)}, want {tuple(v.shape)}")
-        sd[k] = sd[k].to(v.dtype)
-    return sd

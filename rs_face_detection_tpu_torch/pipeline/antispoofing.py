@@ -25,7 +25,7 @@ import torch
 import torch.nn as nn
 
 from ..configs import FaceAntiSpoofingConfig
-from ..models.weights import init_state, load_model
+from ..models.registry import ModelRegistry, registry_on
 from ..ops.image import crop_resize_batch
 from ..utils.device import DeviceLike, resolve_device
 
@@ -74,29 +74,26 @@ def detection_to_crop_box(face_box: np.ndarray) -> Tuple[float, float, float, fl
     return left, float(int(y1)), float(int(right - left + 1.0)), float(int(y2 - y1 + 1.0))
 
 
-def default_minifas_models(cfg: FaceAntiSpoofingConfig, seed: int = 0) -> list:
-    """Seeded full-width MiniFASNets (``default_minifas_spec``) at the
-    config's input sizes, one per scale."""
-    models = []
-    for w, h in cfg.image_sizes:
-        if w != h:
-            raise ValueError(f"the seeded MiniFASNet is square, got {w}x{h}")
-        models.append(load_model("minifasnet", init_state("minifasnet", seed, 3, image_size=h)))
-    return models
-
-
 class FaceAntiSpoofing:
     def __init__(
         self,
         cfg: Optional[FaceAntiSpoofingConfig] = None,
         models: Optional[Sequence[nn.Module]] = None,
         device: DeviceLike = "cuda",
+        registry: Optional[ModelRegistry] = None,
     ) -> None:
-        """``models``: one MiniFASNet per scale, in the config's order; None
-        builds seeded full-width ones."""
+        """``models``: one MiniFASNet per scale, in the config's order; else
+        the config's ``model_names`` from ``registry`` or the default one
+        (models/registry.py::registry_on; the JAX module records no
+        statistics, and neither does this one)."""
         self.cfg = cfg or FaceAntiSpoofingConfig()
         self.device = resolve_device(device)
-        models = list(models) if models is not None else default_minifas_models(self.cfg)
+        if models is None:
+            registry = registry_on(registry, self.device, antispoofing=self.cfg)
+            models = [registry.get(name) for name in self.cfg.model_names]
+        elif registry is not None:
+            raise ValueError("pass models or a registry, not both")
+        models = list(models)
         if len(models) != len(self.cfg.scales):
             raise ValueError(f"{len(models)} models for {len(self.cfg.scales)} scales")
         self.models = [m.to(self.device).eval() for m in models]

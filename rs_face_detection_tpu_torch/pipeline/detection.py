@@ -28,6 +28,7 @@ the module's own stem.
 
 from __future__ import annotations
 
+import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,6 +37,7 @@ import torch.nn as nn
 
 from ..configs import RPN_ANCHOR_CFG, FaceDetectionConfig
 
+from ..models.registry import ModelRegistry, from_registry
 from ..ops.anchors import full_anchor_table
 from ..ops.box_decode import bbox_pred, clip_boxes, landmark_pred
 from ..ops.image import bgr_to_rgb, letterbox, normalize
@@ -160,14 +162,14 @@ class RetinaFaceDetection:
         cfg: Optional[FaceDetectionConfig] = None,
         model: Optional[nn.Module] = None,
         device: DeviceLike = "cuda",
+        registry: Optional[ModelRegistry] = None,
     ) -> None:
+        """``model``: a RetinaFace; else the registry's ``cfg.model_name``
+        (``registry``, or the default one: models/registry.py::registry_on),
+        whose statistics then count this detector's calls."""
         self.cfg = cfg or FaceDetectionConfig()
         self.device = resolve_device(device)
-        if model is None:
-            from ..models.weights import init_state, load_model
-
-            family = f"retinaface_{self.cfg.backbone}"
-            model = load_model(family, init_state(family, seed=0))
+        model, self._registry = from_registry(model, registry, self.cfg.model_name, self.device, detection=self.cfg)
         self.model = model.to(self.device).eval()
         anchors, level_info = full_anchor_table(
             self.cfg.image_size, RPN_ANCHOR_CFG, self.cfg.feat_strides, self.cfg.dense_anchor
@@ -250,6 +252,15 @@ class RetinaFaceDetection:
         return PaddedDetections(out.det[0], out.kps[0], out.count[0])
 
     def __call__(self, image_bgr_u8) -> Tuple[np.ndarray, np.ndarray]:
+        start = time.perf_counter()
         out = self.detect_padded(image_bgr_u8)
         n = int(out.count)
-        return out.det[:n].cpu().numpy(), out.kps[:n].cpu().numpy()
+        det, kps = out.det[:n].cpu().numpy(), out.kps[:n].cpu().numpy()
+        self.record_traffic(1, time.perf_counter() - start)
+        return det, kps
+
+    def record_traffic(self, n_images: int, duration_s: float) -> None:
+        """Count traffic served outside ``__call__`` (``detect_batch`` from a
+        pipeline or a server) in the registry's statistics, if it has one."""
+        if self._registry is not None:
+            self._registry.record(self.cfg.model_name, n_images, duration_s)

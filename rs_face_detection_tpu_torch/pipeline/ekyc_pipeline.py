@@ -13,19 +13,23 @@ selfie resized with OpenCV's uint8 INTER_LINEAR arithmetic on the device
 K4 on the card.  A verify makes two host syncs: the detections (boxes and
 landmarks, for the Umeyama solve) and the results.
 
-Models come from a table keyed by the JAX registry's names (``scrfd``,
+Models come from a table keyed by the registry's names (``scrfd``,
 ``face_id``, ``face_attribute``, ``face_quality_vp``,
 ``face_anti_spoofing_crop_l14``, ``face_anti_spoofing_fi_l14``); names left
-out get seeded full-width models of the families the registry builds: SCRFD
-at width 32 and neck 32, IResNet-50 with 512 outputs, ResNet-18 classifiers
-with 2 outputs, and ``clip_l14`` with 2 classes cast to bf16
-(models/vit.py::cast_for_serving).
+out come from a registry on the pipeline's device (models/registry.py: the
+caller's, or ``default_registry``), which serves ``$RSFD_CHECKPOINT_DIR`` or seeded
+full-width models (models/registry.py::EKYC_FAMILIES): SCRFD at width 32 and neck 32,
+IResNet-50 with 512 outputs, ResNet-18 classifiers with 2 outputs, and
+``clip_l14`` with 2 classes cast to bf16 (models/vit.py::cast_for_serving).
+As in the JAX package, the registry's statistics count the detector only:
+one call of batch 1 per image.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,8 +45,7 @@ from ..configs import (
     FaceAlignmentConfig,
     FaceDetectionConfig,
 )
-from ..models.vit import cast_for_serving
-from ..models.weights import init_state, load_model
+from ..models.registry import ModelRegistry, from_registry, registry_on
 from ..ops.anchors import scrfd_anchor_centers
 from ..ops.box_decode import clip_boxes, distance2bbox, distance2kps
 from ..ops.image import bgr_to_rgb, letterbox, normalize, resize_bilinear, resize_u8_linear
@@ -50,29 +53,6 @@ from ..utils.device import DeviceLike, resolve_device, to_device
 from ..utils.image_io import decode_image_bytes
 from .alignment import FaceAlignment
 from .detection import PaddedDetections, descale, select_and_nms
-
-#: Registry name -> family of the seeded default models.
-DEFAULT_FAMILIES = {
-    "scrfd": "scrfd",
-    "face_id": "iresnet50",
-    "face_attribute": "resnet18_classifier",
-    "face_quality_vp": "resnet18_classifier",
-    "face_anti_spoofing_crop_l14": "clip_l14",
-    "face_anti_spoofing_fi_l14": "clip_l14",
-}
-
-
-def default_models(names: Sequence[str]) -> Dict[str, nn.Module]:
-    """Seeded (seed 0) full-width models for the named slots; the ViT towers
-    in bf16.  The classifiers and towers have 2 outputs (SCRFD and
-    IResNet-50 take no output count)."""
-    models = {}
-    for name in names:
-        family = DEFAULT_FAMILIES[name]
-        model = load_model(family, init_state(family, 0, 2))
-        models[name] = cast_for_serving(model) if family.startswith("clip_") else model
-    return models
-
 
 class SCRFDDetection:
     """SCRFD detector with RetinaFaceDetection's three entry points:
@@ -87,11 +67,15 @@ class SCRFDDetection:
         model: Optional[nn.Module] = None,
         device: DeviceLike = "cuda",
         image_size: Tuple[int, int] = (640, 640),
+        registry: Optional[ModelRegistry] = None,
     ) -> None:
+        """``model``: a SCRFD network (models/scrfd.py, or the mmdet layout
+        of models/scrfd_import.py); else the registry's ``cfg.model_name``
+        (models/registry.py::from_registry), whose statistics then count the
+        calls."""
         self.cfg = cfg or EkycFaceDetectionConfig()
         self.device = resolve_device(device)
-        if model is None:
-            model = default_models(["scrfd"])["scrfd"]
+        model, self._registry = from_registry(model, registry, self.cfg.model_name, self.device)
         self.model = model.to(self.device).eval()
         self.image_size = tuple(image_size)
         centers, levels = scrfd_anchor_centers(self.image_size, num_anchors=self.model.num_anchors)
@@ -156,9 +140,18 @@ class SCRFDDetection:
         return PaddedDetections(out.det[0], out.kps[0], out.count[0])
 
     def __call__(self, image_bgr_u8) -> Tuple[np.ndarray, np.ndarray]:
+        start = time.perf_counter()
         out = self.detect_padded(image_bgr_u8)
         n = int(out.count)
-        return out.det[:n].cpu().numpy(), out.kps[:n].cpu().numpy()
+        det, kps = out.det[:n].cpu().numpy(), out.kps[:n].cpu().numpy()
+        self.record_traffic(1, time.perf_counter() - start)
+        return det, kps
+
+    def record_traffic(self, n_images: int, duration_s: float) -> None:
+        """Count traffic served outside ``__call__`` in the registry's
+        statistics, if it has one."""
+        if self._registry is not None:
+            self._registry.record(self.cfg.model_name, n_images, duration_s)
 
 
 @dataclass
@@ -199,6 +192,7 @@ class EKYCPipeline:
         models: Optional[Mapping[str, nn.Module]] = None,
         device: DeviceLike = "cuda",
         detector_image_size: Tuple[int, int] = (640, 640),
+        registry: Optional[ModelRegistry] = None,
     ) -> None:
         self.device = resolve_device(device)
         self.id_cfg = EkycFaceIDConfig()
@@ -212,11 +206,13 @@ class EKYCPipeline:
             self.quality_cfg.model_name, self.fas_crop_cfg.model_name, self.fas_full_cfg.model_name,
         )
         models = dict(models or {})
-        models.update(default_models([n for n in names if n not in models]))
-
+        served = [n for n in names if n not in models]
+        if served:
+            registry = registry_on(registry, self.device)
+            models.update((n, registry.get(n)) for n in served if n != det_cfg.model_name)
         self.detection = SCRFDDetection(
-            det_cfg, model=models[det_cfg.model_name], device=self.device,
-            image_size=detector_image_size,
+            det_cfg, device=self.device, image_size=detector_image_size,
+            **({"registry": registry} if det_cfg.model_name in served else {"model": models[det_cfg.model_name]}),
         )
         self.alignment = FaceAlignment(FaceAlignmentConfig())
         self.face_id = models[self.id_cfg.model_name].to(self.device).eval()
@@ -264,8 +260,13 @@ class EKYCPipeline:
     def verify_images(self, card_bgr: np.ndarray, selfie_bgr: np.ndarray) -> EKYCResult:
         result = EKYCResult()
         images = [to_device(card_bgr, self.device), to_device(selfie_bgr, self.device)]
+        start = time.perf_counter()
         best = torch.stack([largest_face(self.detection.detect_padded(img)) for img in images])
         best = best.cpu().numpy()  # host sync 1: boxes and landmarks
+        # Two detect calls of one image each; one clock spans both.
+        half = (time.perf_counter() - start) / 2
+        self.detection.record_traffic(1, half)
+        self.detection.record_traffic(1, half)
         faces: List[Optional[Tuple[np.ndarray, np.ndarray]]] = [
             (row[:5].copy(), row[5:15].reshape(5, 2).copy()) if row[15] > 0 else None for row in best
         ]

@@ -14,6 +14,7 @@ the ``fc`` runs K3, the int8 dequant-matmul, once per call on the card.
 from __future__ import annotations
 
 import copy
+import time
 from typing import Optional, Sequence
 
 import numpy as np
@@ -22,7 +23,7 @@ import torch.nn as nn
 
 from ..configs import FaceIdentificationConfig
 from ..models.quantized import is_quantized, quantize_module
-from ..models.weights import init_state, load_model
+from ..models.registry import ModelRegistry, from_registry, record
 from ..ops.image import crops_to_nchw
 from ..utils.device import DeviceLike, resolve_device
 
@@ -43,15 +44,16 @@ class FaceExtraction:
         model: Optional[nn.Module] = None,
         device: DeviceLike = "cuda",
         quantized: bool = False,
+        registry: Optional[ModelRegistry] = None,
     ) -> None:
-        """``model``: an IResNet (float, or already int8); None builds the
-        config's backbone on seeded (seed 0) full-width weights.  With
-        ``quantized`` a float model is quantized on a copy."""
+        """``model``: an IResNet (float, or already int8); else the
+        registry's ``cfg.model_name`` (models/registry.py::from_registry),
+        whose statistics then count the calls.  With ``quantized`` a float
+        model is quantized on a copy."""
         self.cfg = cfg or FaceIdentificationConfig()
         self.device = resolve_device(device)
-        if model is None:
-            model = load_model(self.cfg.backbone, init_state(self.cfg.backbone, 0))
-        elif quantized and not is_quantized(model):
+        model, self._registry = from_registry(model, registry, self.cfg.model_name, self.device, identification=self.cfg)
+        if quantized and not is_quantized(model):
             model = copy.deepcopy(model)
         if quantized and not is_quantized(model):
             quantize_module(model)
@@ -63,6 +65,9 @@ class FaceExtraction:
         L2-normalized rows."""
         if len(imgs_bgr) == 0:
             return np.zeros((0, self.cfg.embedding_dim), np.float32)
+        start = time.perf_counter()
         x = crops_to_nchw(imgs_bgr, self.cfg.image_size, EMBED_MEAN, EMBED_SCALE, self.device)
         with torch.no_grad():
-            return l2_normalize(self.model(x)).cpu().numpy()
+            out = l2_normalize(self.model(x)).cpu().numpy()
+        record(self._registry, self.cfg.model_name, len(imgs_bgr), start)
+        return out

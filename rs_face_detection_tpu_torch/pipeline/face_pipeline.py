@@ -8,15 +8,20 @@ warp + quality head + embedding head.  The heads' input normalisation and
 the quality demotion come from the staged modules (pipeline/quality.py and
 pipeline/extraction.py), as in the JAX package.
 
-Models come from a table keyed by the JAX registry's names
+Models come from a table keyed by the registry's names
 (``face_detection_retina``, ``face_quality``, ``face_identification``);
-names left out get seeded full-width weights (models/weights.py::init_state).
+names left out come from a registry on the pipeline's device
+(models/registry.py: the caller's, or ``default_registry`` for this config,
+which serves ``$RSFD_CHECKPOINT_DIR`` or seeded full-width weights), whose
+statistics then count them as the JAX pipeline counts: the detector per
+detect call, each head per tail call.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,7 +29,7 @@ import torch.nn as nn
 
 from ..configs import FacePipelineConfig, FaceQualityClass
 
-from ..models.weights import init_state, load_model
+from ..models.registry import ModelRegistry, registry_on
 from ..ops.image import bgr_to_rgb, letterbox_u8_batch, normalize, resize_bilinear, warp_affine
 from ..utils.device import DeviceLike, resolve_device, to_device
 from ..utils.image_io import decode_image_bytes
@@ -33,20 +38,6 @@ from .detection import RetinaFaceDetection
 from .extraction import EMBED_MEAN, EMBED_SCALE, l2_normalize
 from .quality import QUALITY_MEAN, QUALITY_SCALE, demote_quality
 from .selection import FaceSelection
-
-
-def default_models(config: FacePipelineConfig, names: Sequence[str]) -> Dict[str, nn.Module]:
-    """Seeded (seed 0) full-width models for the named pipeline slots."""
-    families = {
-        config.detection.model_name: (f"retinaface_{config.detection.backbone}", 4),
-        config.quality.model_name: ("resnet18_classifier", config.quality.num_classes),
-        config.identification.model_name: (config.identification.backbone, 4),
-    }
-    models = {}
-    for name in names:
-        family, num_outputs = families[name]
-        models[name] = load_model(family, init_state(family, 0, num_outputs))
-    return models
 
 
 @dataclass
@@ -69,6 +60,7 @@ class FacePipeline:
         is_enroll: bool = False,
         process_on_no_face: bool = False,
         compat_area_bug: bool = False,
+        registry: Optional[ModelRegistry] = None,
     ) -> None:
         self.config = config or FacePipelineConfig()
         self.device = resolve_device(device)
@@ -77,15 +69,34 @@ class FacePipeline:
         cfg = self.config
         names = (cfg.detection.model_name, cfg.quality.model_name, cfg.identification.model_name)
         models = dict(models or {})
-        models.update(default_models(cfg, [n for n in names if n not in models]))
+        #: names taken from the registry, whose statistics count their calls
+        self.served = tuple(n for n in names if n not in models)
+        self.registry = None
+        if self.served:
+            self.registry = registry_on(
+                registry, self.device, detection=cfg.detection, quality=cfg.quality, identification=cfg.identification
+            )
+            for n in self.served:
+                if n != cfg.detection.model_name:  # the detector takes its own from the registry
+                    models[n] = self.registry.get(n)
 
+        det_name = cfg.detection.model_name
         self.face_detection = RetinaFaceDetection(
-            cfg.detection, model=models[cfg.detection.model_name], device=self.device
+            cfg.detection, device=self.device,
+            **({"registry": self.registry} if det_name in self.served else {"model": models[det_name]}),
         )
         self.face_selection = FaceSelection(cfg.selection, compat_area_bug=compat_area_bug)
         self.face_alignment = FaceAlignment(cfg.alignment)
         self.quality_model = models[cfg.quality.model_name].to(self.device).eval()
         self.embedding_model = models[cfg.identification.model_name].to(self.device).eval()
+
+    def _record(self, name: str, n: int, duration_s: float) -> None:
+        if name in self.served:
+            self.registry.record(name, n, duration_s)
+
+    def _record_heads(self, n: int, duration_s: float) -> None:
+        self._record(self.config.quality.model_name, n, duration_s)
+        self._record(self.config.identification.model_name, n, duration_s)
 
     # ---- the fused tail ----------------------------------------------------
 
@@ -126,8 +137,11 @@ class FacePipeline:
         if box is None and not self.process_on_no_face:
             return result
         face = self.face_alignment(img, box, points)
+        start = time.perf_counter()
         probs, emb = self.heads(face[None])
-        self._fill(result, probs[0].cpu().numpy(), emb[0].cpu().numpy())
+        probs, emb = probs[0].cpu().numpy(), emb[0].cpu().numpy()
+        self._record_heads(1, time.perf_counter() - start)
+        self._fill(result, probs, emb)
         result.selected_face_box = box
         return result
 
@@ -153,8 +167,10 @@ class FacePipeline:
         canvases, det_scales = letterbox_u8_batch(images, width, height, self.device)
         scales = np.asarray(det_scales, np.float32)
 
+        start = time.perf_counter()
         out = self.face_detection.detect_batch(canvases, torch.from_numpy(scales))
         counts, all_det, all_kps = (t.cpu().numpy() for t in (out.count, out.det, out.kps))
+        self._record(self.config.detection.model_name, n, time.perf_counter() - start)
 
         results = [FaceExtractionResult(face_count=int(c)) for c in counts]
         selected, matrices, staged = [], [], []
@@ -190,8 +206,16 @@ class FacePipeline:
             faces.append(self.face_alignment(to_device(images[i], self.device), box, points)[None])
             owners.append(i)
         if owners:
+            start = time.perf_counter()
             probs, embs = self.heads(torch.cat(faces))
             probs, embs = probs.cpu().numpy(), embs.cpu().numpy()
+            # One fused call; the statistics count the two calls the JAX
+            # pipeline makes (the warped faces, then the crop-fallback
+            # faces), the clock split between them by their face counts.
+            per_face = (time.perf_counter() - start) / len(owners)
+            for k in (len(selected), len(staged)):
+                if k:
+                    self._record_heads(k, k * per_face)
             for j, i in enumerate(owners):
                 self._fill(results[i], probs[j], embs[j])
         return results

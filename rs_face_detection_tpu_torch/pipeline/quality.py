@@ -8,6 +8,7 @@ threshold demotion (``demote_quality``), which FacePipeline's tail shares.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..configs import FaceQualityConfig
-from ..models.weights import init_state, load_model
+from ..models.registry import ModelRegistry, from_registry, record
 from ..ops.image import crops_to_nchw
 from ..utils.device import DeviceLike, resolve_device
 
@@ -40,23 +41,26 @@ class FaceQuality:
         cfg: Optional[FaceQualityConfig] = None,
         model: Optional[nn.Module] = None,
         device: DeviceLike = "cuda",
+        registry: Optional[ModelRegistry] = None,
     ) -> None:
-        """``model``: a ResNet-18 classifier; None builds one with the
-        config's classes on seeded (seed 0) full-width weights."""
+        """``model``: a ResNet-18 classifier; else the registry's
+        ``cfg.model_name`` (models/registry.py::from_registry), whose
+        statistics then count the calls."""
         self.cfg = cfg or FaceQualityConfig()
         self.device = resolve_device(device)
-        if model is None:
-            family = "resnet18_classifier"
-            model = load_model(family, init_state(family, 0, self.cfg.num_classes))
+        model, self._registry = from_registry(model, registry, self.cfg.model_name, self.device, quality=self.cfg)
         self.model = model.to(self.device).eval()
 
     def probabilities(self, imgs_bgr: Sequence[np.ndarray]) -> np.ndarray:
         """Raw (B, num_classes) class probabilities for same-shaped BGR crops."""
         if len(imgs_bgr) == 0:
             return np.zeros((0, self.cfg.num_classes), np.float32)
+        start = time.perf_counter()
         x = crops_to_nchw(imgs_bgr, self.cfg.image_size, QUALITY_MEAN, QUALITY_SCALE, self.device)
         with torch.no_grad():
-            return self.model(x).cpu().numpy()
+            out = self.model(x).cpu().numpy()
+        record(self._registry, self.cfg.model_name, len(imgs_bgr), start)
+        return out
 
     def __call__(self, imgs_bgr: Sequence[np.ndarray]) -> Tuple[List[float], List[int]]:
         """Classify crops; returns (scores, class indices) per image."""

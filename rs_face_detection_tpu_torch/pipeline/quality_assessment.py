@@ -8,6 +8,7 @@ score above the threshold (55.0 on the 0-100 scale) passes.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -15,7 +16,7 @@ import torch
 import torch.nn as nn
 
 from ..configs import FaceQualityAssessmentConfig
-from ..models.weights import init_state, load_model
+from ..models.registry import ModelRegistry, from_registry, record
 from ..ops.image import crops_to_nchw
 from ..utils.device import DeviceLike, resolve_device
 
@@ -29,21 +30,23 @@ class FaceQualityAssessment:
         cfg: Optional[FaceQualityAssessmentConfig] = None,
         model: Optional[nn.Module] = None,
         device: DeviceLike = "cuda",
+        registry: Optional[ModelRegistry] = None,
     ) -> None:
-        """``model``: a one-output ResNet-18 without softmax; None builds one
-        on seeded (seed 0) full-width weights."""
+        """``model``: a one-output ResNet-18 without softmax; else the
+        registry's ``cfg.model_name`` (models/registry.py::from_registry),
+        whose statistics then count the calls."""
         self.cfg = cfg or FaceQualityAssessmentConfig()
         self.device = resolve_device(device)
-        if model is None:
-            family = "resnet18_classifier"
-            model = load_model(family, init_state(family, 0, 1), softmax=False)
+        model, self._registry = from_registry(model, registry, self.cfg.model_name, self.device, quality_assessment=self.cfg)
         self.model = model.to(self.device).eval()
 
     def __call__(self, imgs_bgr: Sequence[np.ndarray]) -> Tuple[List[float], List[int]]:
         """Score same-shaped crops; returns (scores, pass flags (score > threshold))."""
         if len(imgs_bgr) == 0:
             return [], []
+        start = time.perf_counter()
         x = crops_to_nchw(imgs_bgr, self.cfg.image_size, FQA_MEAN, FQA_SCALE, self.device)
         with torch.no_grad():
             scores = [float(s) for s in self.model(x).reshape(-1).cpu()]
+        record(self._registry, self.cfg.model_name, len(imgs_bgr), start)
         return scores, [1 if s > self.cfg.threshold else 0 for s in scores]

@@ -13,7 +13,14 @@ the compute stream waits on an event before it reads the canvases.  In
 ``detect_stream`` a producer thread stages batch k+1 this way while the
 consumer's batch k computes -- the role of the JAX server's ``_stage``.
 
-The port has no statistics registry yet, so the server records none.
+Any detector with the ``detect_batch`` contract is served: the
+RetinaFaceDetection of pipeline/detection.py and the SCRFDDetection of
+pipeline/ekyc_pipeline.py, as the JAX server serves both.  Each batch is
+counted in the detector's registry statistics (``record_traffic``): in
+``detect_batch`` from staging to the unpacked results; in ``detect_stream``
+the host time of the batch's dispatch plus that of its fetch, so the time a
+finished batch waits for the consumer to ask for it is not counted (the JAX
+server's streamed duration runs from dispatch to fetch and includes it).
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ from __future__ import annotations
 import contextlib
 import queue
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterable, Iterator, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Iterable, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,23 +51,34 @@ class _Staged(NamedTuple):
     ready: Optional[torch.cuda.Event]
 
 
+def detector_image_size(detector: Any) -> Tuple[int, int]:
+    """A detector's (width, height) input: its ``image_size`` attribute
+    (SCRFDDetection) or its config's (RetinaFaceDetection)."""
+    size = getattr(detector, "image_size", None) or detector.cfg.image_size
+    return tuple(size)
+
+
 class DetectionServer:
     """Batched detection on the detector's device.
 
-    detector: a ``RetinaFaceDetection`` (default: seeded weights on the CPU);
-    batch_size: most payloads per ``detect_batch`` call and per streamed
-    batch; decode_workers: threads that decode encoded payloads.
+    detector: a ``RetinaFaceDetection`` or ``SCRFDDetection`` -- anything with
+    ``device``, an image size, ``detect_batch(canvases, scales)`` and
+    ``record_traffic(n, seconds)`` (default: ``RetinaFaceDetection()``, from
+    the default registry on the card); batch_size: most payloads per
+    ``detect_batch`` call and per streamed batch; decode_workers: threads
+    that decode encoded payloads.
     """
 
     def __init__(
         self,
-        detector: Optional[RetinaFaceDetection] = None,
+        detector: Optional[Any] = None,
         batch_size: int = 8,
         decode_workers: int = 4,
     ) -> None:
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self.detector = detector or RetinaFaceDetection()
+        self.image_size = detector_image_size(self.detector)
         self.device = self.detector.device
         self.batch_size = batch_size
         self._pool = ThreadPoolExecutor(max_workers=decode_workers)
@@ -91,7 +110,7 @@ class DetectionServer:
     def _stage(self, payloads: Sequence) -> _Staged:
         """Decode, upload and letterbox a batch on the side stream."""
         images = list(self._pool.map(self._decode, payloads))
-        width, height = self.detector.cfg.image_size
+        width, height = self.image_size
         cuda = self._copy_stream is not None
         ctx = torch.cuda.stream(self._copy_stream) if cuda else contextlib.nullcontext()
         with ctx:
@@ -128,7 +147,10 @@ class DetectionServer:
             raise ValueError(f"batch larger than configured size {self.batch_size}")
         if not payloads:
             return []
-        return self._unpack(self._run(self._stage(payloads)), len(payloads))
+        start = time.perf_counter()
+        results = self._unpack(self._run(self._stage(payloads)), len(payloads))
+        self.detector.record_traffic(len(payloads), time.perf_counter() - start)
+        return results
 
     def detect_stream(self, payload_iter: Iterable, prefetch: int = 2) -> Iterator[List[Result]]:
         """Yield ``detect_batch`` results per batch of batch_size payloads
@@ -168,26 +190,37 @@ class DetectionServer:
             finally:
                 put(sentinel)
 
+        def dispatch(staged: _Staged, n: int) -> Tuple[PaddedDetections, int, float]:
+            start = time.perf_counter()
+            out = self._run(staged)
+            return out, n, time.perf_counter() - start
+
+        def emit(out: PaddedDetections, n: int, dispatch_s: float) -> List[Result]:
+            # Timed apart from the dispatch: a consumer that holds on to the
+            # previous batch does not lengthen this one's duration.
+            start = time.perf_counter()
+            results = self._unpack(out, n)
+            self.detector.record_traffic(n, dispatch_s + time.perf_counter() - start)
+            return results
+
         thread = threading.Thread(target=produce, daemon=True)
         thread.start()
         try:
-            pending: List[Tuple[PaddedDetections, int]] = []
+            pending: List[Tuple[PaddedDetections, int, float]] = []
             while True:
                 item = batches.get()
                 if item is sentinel:
                     break
                 if isinstance(item, BaseException):
-                    for out, n in pending:  # drain the dispatched batches first
-                        yield self._unpack(out, n)
+                    for batch in pending:  # drain the dispatched batches first
+                        yield emit(*batch)
                     thread.join()
                     raise item
-                staged, n = item
-                pending.append((self._run(staged), n))
+                pending.append(dispatch(*item))
                 if len(pending) > 1:
-                    out, n = pending.pop(0)
-                    yield self._unpack(out, n)
-            for out, n in pending:
-                yield self._unpack(out, n)
+                    yield emit(*pending.pop(0))
+            for batch in pending:
+                yield emit(*batch)
             thread.join()
         finally:
             abandoned.set()

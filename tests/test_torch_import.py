@@ -42,7 +42,9 @@ def test_port_imports_without_jax():
         "models.minifas", "models.quantized", "models.weights", "pipeline.detection",
         "pipeline.face_pipeline", "pipeline.ekyc_pipeline", "pipeline.extraction",
         "pipeline.quality", "pipeline.quality_assessment", "pipeline.antispoofing",
-        "serving.detection_server", "utils.image_io",
+        "serving.detection_server", "utils.image_io", "models.heads", "models.registry",
+        "models.checkpoint_maps", "models.clip_import", "models.scrfd_import", "models.checkpoint_io",
+        "ops.matching",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]
 
@@ -77,7 +79,8 @@ def test_kernel_card_tests_collect_without_jax():
     "entry",
     [
         "RetinaFaceDetection", "FacePipeline", "SCRFDDetection", "EKYCPipeline",
-        "FaceExtraction", "FaceQuality", "FaceQualityAssessment", "FaceAntiSpoofing",
+        "FaceExtraction", "FaceQuality", "FaceQualityAssessment", "FaceAntiSpoofing", "Gallery",
+        "DetectionServer", "ModelRegistry", "standard_registry", "default_registry",
     ],
 )
 def test_entry_points_default_to_the_card(entry):
@@ -85,6 +88,8 @@ def test_entry_points_default_to_the_card(entry):
     before it builds a model: nothing carries on on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid here")
+    from rs_face_detection_tpu_torch.models import registry
+    from rs_face_detection_tpu_torch.ops import matching
     from rs_face_detection_tpu_torch.pipeline import (
         antispoofing,
         detection,
@@ -94,6 +99,7 @@ def test_entry_points_default_to_the_card(entry):
         quality,
         quality_assessment,
     )
+    from rs_face_detection_tpu_torch.serving import detection_server
 
     cls = {
         "RetinaFaceDetection": detection.RetinaFaceDetection,
@@ -104,6 +110,36 @@ def test_entry_points_default_to_the_card(entry):
         "FaceQuality": quality.FaceQuality,
         "FaceQualityAssessment": quality_assessment.FaceQualityAssessment,
         "FaceAntiSpoofing": antispoofing.FaceAntiSpoofing,
+        "Gallery": matching.Gallery,
+        "DetectionServer": detection_server.DetectionServer,
+        "ModelRegistry": registry.ModelRegistry,
+        "standard_registry": registry.standard_registry,
+        "default_registry": registry.default_registry,
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls()
+
+
+@pytest.mark.parametrize("entry", ["FacePipeline", "EKYCPipeline", "FaceExtraction", "SCRFDDetection"])
+def test_registry_built_entry_points_raise_before_building(entry):
+    """Given a registry and no device, an entry point raises on a host
+    without CUDA before any builder runs."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA card: the default device is valid here")
+    from rs_face_detection_tpu_torch.models.registry import ModelRegistry
+    from rs_face_detection_tpu_torch.pipeline import ekyc_pipeline, extraction, face_pipeline
+
+    built = []
+    registry = ModelRegistry("cpu")
+    for name in ("face_detection_retina", "face_quality", "face_identification", "scrfd", "face_id",
+                 "face_attribute", "face_quality_vp", "face_anti_spoofing_crop_l14", "face_anti_spoofing_fi_l14"):
+        registry.register_builder(name, lambda name=name: built.append(name))
+    cls = {
+        "FacePipeline": face_pipeline.FacePipeline,
+        "EKYCPipeline": ekyc_pipeline.EKYCPipeline,
+        "FaceExtraction": extraction.FaceExtraction,
+        "SCRFDDetection": ekyc_pipeline.SCRFDDetection,
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cls(registry=registry)
+    assert built == [] and registry.index()[0]["state"] == "UNAVAILABLE"

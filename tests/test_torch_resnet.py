@@ -10,7 +10,7 @@ conv on the 2x2 space-to-depth layout).  Required, in f32 on the CPU:
     the maps' magnitude (O(1) here);
   - the weight bridge round-trips exactly through the JAX package's own
     import map, and raises on a missing or an extra leaf;
-  - a randomised biubug6 mirror loaded through ``state_dict_from_biubug6``
+  - a randomised biubug6 mirror loaded through ``load_retinaface_state_dict``
     gives the maps that the same mirror gives through the JAX package's
     ``load_retinaface_state_dict`` (the 7x7 stem mapped to the s2d form),
     at 128x128, within the bound of tests/test_checkpoint_maps.py;
@@ -34,6 +34,7 @@ from rs_face_detection_tpu.models.import_weights import stem_to_s2d as jax_stem_
 from rs_face_detection_tpu.models.registry import _flatten, _unflatten
 from rs_face_detection_tpu.models.retinaface import init_retinaface
 from rs_face_detection_tpu_torch.models import resnet, weights
+from rs_face_detection_tpu_torch.models.checkpoint_maps import load_retinaface_state_dict as port_load_retinaface
 from rs_face_detection_tpu_torch.ops.stem import fused_stem_plain
 from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
 from rs_face_detection_tpu.configs import FaceDetectionConfig
@@ -155,7 +156,7 @@ def test_biubug6_r50_loader_matches_jax_import(flax_r50):
     x = np.random.default_rng(1).uniform(0, 255, (1, 128, 128, 3)).astype(np.float32)
     want = model.apply(jax.tree.map(jnp.asarray, new_vars), jnp.asarray(x), train=False)
     prefixed = {f"module.{k}": v for k, v in sd.items()}
-    port = weights.load_model(FAMILY, weights.state_dict_from_biubug6(FAMILY, prefixed))
+    port = weights.load_model(FAMILY, port_load_retinaface(prefixed, "resnet50"))
     with torch.no_grad():
         got = port(torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))))
     for stride in (8, 16, 32):
@@ -168,7 +169,7 @@ def test_biubug6_r50_loader_matches_jax_import(flax_r50):
                 err_msg=f"{stride}/{key}",
             )
     with pytest.raises(ValueError, match="extra keys"):
-        weights.state_dict_from_biubug6(FAMILY, dict(sd, **{"fpn.extra.weight": np.zeros(1)}))
+        port_load_retinaface(dict(sd, **{"fpn.extra.weight": np.zeros(1)}), "resnet50")
     del sd["ClassHead.0.conv1x1.bias"]
     with pytest.raises(ValueError, match="missing keys"):
-        weights.state_dict_from_biubug6(FAMILY, sd)
+        port_load_retinaface(sd, "resnet50")

@@ -9,10 +9,16 @@
     (same bounds), since both letterbox with OpenCV's uint8 arithmetic;
   - ``detect_stream`` equals ``detect_batch`` per batch, bit for bit, with a
     partial last batch, on the R50 detector (fused stem path);
-  - a producer error reaches the consumer after the batches already staged.
+  - a producer error reaches the consumer after the batches already staged;
+  - an mmdet-layout SCRFD (the eKYC detector) is served too, per image equal
+    to its single-image path at the same bounds;
+  - ``detect_batch`` and ``detect_stream`` count every batch in the
+    detector's registry statistics, and a streamed batch's duration leaves
+    out the time it waits for a slow consumer.
 """
 
 import os
+import time
 
 import numpy as np
 import pytest
@@ -22,9 +28,13 @@ from rs_face_detection_tpu.configs import FaceDetectionConfig
 from rs_face_detection_tpu.parallel.serving import DetectionServer as JDetectionServer
 from rs_face_detection_tpu.utils.fixtures import load_trained_detector
 from rs_face_detection_tpu_torch.models import weights
+from rs_face_detection_tpu_torch.models.registry import DETECTION_OUTPUT_SPEC, ModelRegistry, ModelSpec
+from rs_face_detection_tpu_torch.models.scrfd_import import load_scrfd_state_dict
 from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
+from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import SCRFDDetection
 from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
 from test_torch_detection import _assert_same
+from torch_mirrors import SCRFDMirror, randomize_state_dict
 
 torch.set_num_threads(2)
 
@@ -120,3 +130,57 @@ def test_batch_limits_and_close(mnet, frames):
     server.close()
     with pytest.raises(RuntimeError):
         server.detect_batch(frames[:1])
+
+
+def _registry_detector(mnet):
+    registry = ModelRegistry("cpu")
+    registry.register(ModelSpec(CFG.model_name, (64, 64, 3), DETECTION_OUTPUT_SPEC), mnet.model)
+    return registry, RetinaFaceDetection(CFG, device="cpu", registry=registry)
+
+
+def test_scrfd_served_equals_single_image_path(frames):
+    mirror = randomize_state_dict(SCRFDMirror(width=8), seed=5)
+    model, _ = load_scrfd_state_dict({k: v.detach().numpy() for k, v in mirror.state_dict().items()})
+    registry = ModelRegistry("cpu")
+    registry.register(ModelSpec("scrfd", (64, 64, 3), "scrfd maps"), model)
+    det = SCRFDDetection(device="cpu", image_size=(64, 64), registry=registry)
+    with DetectionServer(det, batch_size=4) as server:
+        assert server.image_size == (64, 64)
+        got = server.detect_batch(frames[:4])
+        streamed = [r for batch in server.detect_stream(iter(frames[:6])) for r in batch]
+    registry.unload("scrfd")  # the per-image reference calls are not counted below
+    want = [det(f) for f in frames[:6]]
+    assert sum(len(d) for d, _ in want) > 0
+    _same_results(got, want[:4])
+    _same_results(streamed, want)
+
+
+def test_batches_are_counted_in_registry_statistics(mnet, frames):
+    registry, det = _registry_detector(mnet)
+    with DetectionServer(det, batch_size=3) as server:
+        server.detect_batch(frames[:2])
+        assert [len(b) for b in server.detect_stream(iter(frames))] == [3, 3, 1]
+    stats = registry.statistics(CFG.model_name)
+    assert stats.inference_count == 2 + len(frames)
+    assert stats.execution_count == 4
+    assert stats.batch_size_counts == {2: 1, 3: 2, 1: 1}
+    assert stats.cumulative_duration_s > 0
+
+
+def test_stream_duration_leaves_out_the_consumers_wait(mnet, frames):
+    """The JAX server times a streamed batch from dispatch to fetch, so a
+    consumer that holds batch k lengthens batch k+1 by its wait; the port
+    times each batch's dispatch and its fetch, which lie outside the
+    consumer's waits and apart from each other, so the recorded durations
+    and the waits add up to no more than the wall time, however fast the
+    host runs."""
+    registry, det = _registry_detector(mnet)
+    wait = 0.2
+    with DetectionServer(det, batch_size=2) as server:
+        start = time.perf_counter()
+        for _ in server.detect_stream(iter(frames[:6])):
+            time.sleep(wait)
+        wall = time.perf_counter() - start
+    stats = registry.statistics(CFG.model_name)
+    assert stats.execution_count == 3
+    assert 0 < stats.cumulative_duration_s <= wall - 3 * wait, (stats.cumulative_duration_s, wall)
