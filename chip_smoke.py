@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on a CUDA card: face-ID, eKYC, the
-weight-only int8 FaceExtraction and checkpoint serving through the registry.
+weight-only int8 FaceExtraction, checkpoint serving through the registry, and
+offline evaluation and video (multi-scale, TTA, tracking, AP).
 
 Run from the root of a checkout, with one card:
 
@@ -129,13 +130,32 @@ and the last line is never printed):
      with one K3 launch; (d) a Gallery of 100,000 seeded rows plus the
      fixture face on the card, identify b8 at k = 5 against the CPU's, and
      its time per call;
+ 23. offline evaluation and video on the trained 640 detector, each path
+     held against the same object built on the CPU (counts equal, boxes
+     within 1e-2 px, scores within 1e-4): (a) MultiScaleDetection over
+     DEFAULT_BUCKETS on frames of 640x480, 1280x720 and 1920x1080, each
+     routed to its bucket, one K1 launch per call, the registry counting
+     every bucket's calls, ms per call per bucket; (b) TTADetection over
+     the 640 and 1280 detectors with flip on the 1280x720 frame and its
+     mirror, 4 K1 launches per image, the mirror's view rows equal to the
+     frame's as a set and every merged box within 1 px of its mirror
+     counterpart or an exact score tie between views, every single-scale
+     box kept at IoU >= 0.5, ms per image; (c) VideoPipeline
+     over DetectionServer(batch_size=8) on a 64-frame clip (the face moves
+     4 px a frame and is gone for 3 frames): one track id on the face
+     throughout, the CPU's ids, 8 K1 launches, frames per second; (d)
+     ``trained_mnet64.npz`` on ``ap_eval_set.npz`` (AP >= recorded - 0.02,
+     the CPU's within 1e-6) and the official WIDER protocol on 12
+     composited frames whose .mat files it writes under _build/ and
+     removes, images held in memory behind DetectionServer.detect_stream
+     (the CPU's predictions, AP within 1e-3);
 then a JSON line of the kernels, with each one's bound on the card, its
 time on the device as ``ms`` and from Python as ``python_ms``, and
 {"ok": true, "device": ...} last.
 Every count a phase checks is set to 0 just before its path runs.  The
-main paths (phases 5, 9, 15, 18 and each counted run of 22) set all four
-kernels' counts to 0 and read all four after, and the kernels line reports
-exactly those reads.
+main paths (phases 5, 9, 15, 18, each counted run of 22 and (a)-(c) of 23)
+set all four kernels' counts to 0 and read all four after, and the kernels
+line reports exactly those reads.
 
 Frames are composited from tests/fixtures/real_face_crop.npz (the face of
 tests/fixtures/real_face.jpg, box (172, 125, 372, 340), resized to 160x160)
@@ -169,27 +189,44 @@ def make_frames(rng, n, face, h=480, w=640):
     """n (h, w, 3) uint8 BGR frames, 1-3 faces each in distinct quadrants."""
     import numpy as np
 
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     frames = []
     for _ in range(n):
-        base = rng.uniform(40, 200, size=3).astype(np.float32)
-        img = (
-            base
-            + (yy / h)[..., None] * rng.uniform(-60, 60, size=3)
-            + (xx / w)[..., None] * rng.uniform(-60, 60, size=3)
-            + rng.normal(0, 6, size=(h, w, 3))
-        )
+        img = gradient(rng, h, w)
         cells = [(0, 0), (w // 2, 0), (0, h // 2), (w // 2, h // 2)]
         for k in rng.permutation(4)[: int(rng.integers(1, 4))]:
             cx, cy = cells[k]
             s = int(rng.integers(90, h // 2 + 1))
             x = cx + int(rng.integers(0, w // 2 - s + 1))
             y = cy + int(rng.integers(0, h // 2 - s + 1))
-            rows = (np.arange(s) * face.shape[0]) // s
-            cols = (np.arange(s) * face.shape[1]) // s
-            img[y : y + s, x : x + s] = face[rows][:, cols]
+            paste_face(img, face, x, y, s)
         frames.append(np.clip(img, 0, 255).astype(np.uint8))
     return frames
+
+
+def gradient(rng, h, w):
+    """An (h, w, 3) float BGR background: a seeded color, two seeded
+    gradients and noise."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = rng.uniform(40, 200, size=3).astype(np.float32)
+    return (
+        base
+        + (yy / h)[..., None] * rng.uniform(-60, 60, size=3)
+        + (xx / w)[..., None] * rng.uniform(-60, 60, size=3)
+        + rng.normal(0, 6, size=(h, w, 3))
+    )
+
+
+def paste_face(img, face, x, y, s):
+    """The fixture face resampled by index to s x s at (x, y), in place;
+    returns its inclusive box."""
+    import numpy as np
+
+    rows = (np.arange(s) * face.shape[0]) // s
+    cols = (np.arange(s) * face.shape[1]) // s
+    img[y : y + s, x : x + s] = face[rows][:, cols]
+    return (x, y, x + s - 1, y + s - 1)
 
 
 def make_crops(rng, n, face, size=112):
@@ -404,13 +441,11 @@ def ekyc_pairs(rng, face, n):
         card = np.full((400, 640, 3), 0, np.uint8) + rng.integers(180, 230, size=3).astype(np.uint8)
         s = int(rng.integers(150, 260))
         y, x = int(rng.integers(20, 400 - s)), int(rng.integers(20, 300))
-        idx = (np.arange(s) * face.shape[0]) // s
-        card[y : y + s, x : x + s] = face[idx][:, idx]
+        paste_face(card, face, x, y, s)
         selfie = make_frames(rng, 1, face)[0]
         s = int(rng.integers(260, 420))
         y, x = int(rng.integers(0, 480 - s)), int(rng.integers(0, 640 - s))
-        idx = (np.arange(s) * face.shape[0]) // s
-        selfie[y : y + s, x : x + s] = face[idx][:, idx]
+        paste_face(selfie, face, x, y, s)
         pairs.append((card, selfie))
     return pairs
 
@@ -1296,6 +1331,328 @@ def checkpoint_phase(dev, rng, face, card, p5):
     return {"counts": totals, "seconds": seconds}
 
 
+
+def place_faces(rng, face, h, w, n_faces, sizes):
+    """An (h, w, 3) uint8 frame with n_faces copies of the fixture face of
+    sides in ``sizes``, one per column of the frame, and their (n, 4)
+    inclusive boxes."""
+    import numpy as np
+
+    img = gradient(rng, h, w)
+    cell = w // n_faces
+    boxes = []
+    for i in range(n_faces):
+        s = int(rng.integers(sizes[0], min(sizes[1], cell, h) + 1))
+        x = i * cell + int(rng.integers(0, cell - s + 1))
+        boxes.append(paste_face(img, face, x, int(rng.integers(0, h - s + 1)), s))
+    return np.clip(img, 0, 255).astype(np.uint8), np.asarray(boxes, np.float32)
+
+
+def same_detections(got, want, what):
+    """Counts equal, boxes and landmarks within 1e-2 px, scores within 1e-4;
+    returns the largest box or landmark error."""
+    import numpy as np
+
+    (gd, gk), (wd, wk) = got, want
+    check(gd.shape == wd.shape, f"{what}: {len(gd)} detections on the card, {len(wd)} on the CPU")
+    if not len(wd):
+        return 0.0
+    box = float(max(np.abs(gd[:, :4] - wd[:, :4]).max(), np.abs(gk - wk).max()))
+    score = float(np.abs(gd[:, 4] - wd[:, 4]).max())
+    check(box <= 1e-2 and score <= 1e-4, f"{what}: card vs CPU box {box} px, score {score}")
+    return box
+
+
+#: Phase 23 (c): the clip's length, its gap (frames without the face) and the
+#: face's side and speed in px per frame.
+CLIP_FRAMES, CLIP_GAP, CLIP_FACE, CLIP_STEP = 64, (30, 31, 32), 160, 4
+
+
+def offline_phase(dev, rng, face, card, det_sd):
+    """Phase 23: detection beyond the fixed 640 serving call, each run on the
+    card and by the same objects built on the CPU (plain NMS), TF32 off: (a)
+    MultiScaleDetection over DEFAULT_BUCKETS, (b) two-size flip TTA, (c) a
+    64-frame VideoPipeline over DetectionServer(batch_size=8), (d) AP on the
+    fixture eval set and the official WIDER protocol on a set the phase
+    writes under _build/.  Returns the launch counts of (a)-(c)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from scipy.io import savemat
+
+    from rs_face_detection_tpu_torch.configs import FaceDetectionConfig
+    from rs_face_detection_tpu_torch.kernels import build
+    from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.models.registry import DETECTION_OUTPUT_SPEC, ModelRegistry, ModelSpec
+    from rs_face_detection_tpu_torch.ops.eval import evaluate_detector
+    from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch
+    from rs_face_detection_tpu_torch.ops.wider_split import evaluate_wider_official, find_split_mats
+    from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
+    from rs_face_detection_tpu_torch.pipeline.multiscale import DEFAULT_BUCKETS, MultiScaleDetection
+    from rs_face_detection_tpu_torch.pipeline.tracking import IouTracker, VideoPipeline, iou_matrix_np
+    from rs_face_detection_tpu_torch.pipeline.tta import TTADetection, flip_detections
+    from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
+    from rs_face_detection_tpu_torch.utils.fixtures import load_ap_eval_set, load_trained_detector
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    both = (dev, cpu)
+
+    def box_iou(a, b):
+        return float(iou_matrix_np(np.asarray(a, np.float32)[None, :4], np.asarray(b, np.float32)[None, :4])[0, 0])
+
+    family = "retinaface_mobilenet025"
+    cfg = FaceDetectionConfig()
+    counts = {}
+
+    def served_registry(device):
+        reg = ModelRegistry(device)
+        reg.register(ModelSpec(cfg.model_name, (640, 640, 3), DETECTION_OUTPUT_SPEC), weights.load_model(family, det_sd))
+        return reg
+
+    def stats(reg):
+        st = reg.statistics(cfg.model_name)
+        return st.inference_count, st.execution_count, dict(st.batch_size_counts)
+
+    # (a) MultiScaleDetection: one frame per bucket.
+    regs = {d: served_registry(d) for d in both}
+    multi = {d: MultiScaleDetection(DEFAULT_BUCKETS, cfg, registry=regs[d], device=d) for d in both}
+    check(len({id(det.model) for det in multi[dev].detectors.values()}) == 1, "phase 23 (a): the buckets hold two modules")
+    frames = {
+        (h, w): place_faces(rng, face, h, w, 3, (90, h // 2))[0] for h, w in ((480, 640), (720, 1280), (1080, 1920))
+    }
+    for frame in frames.values():  # warm-up
+        multi[dev](frame)
+    torch.cuda.synchronize()
+    stats0 = stats(regs[dev])
+    zero_counts()
+    got = {hw: multi[dev](frame) for hw, frame in frames.items()}
+    torch.cuda.synchronize()
+    counts["multiscale"] = read_counts()
+    stats1 = stats(regs[dev])
+    check(counts["multiscale"] == {"nms_mask": 3, "fused_stem": 0, "flash_attention": 0, "int8_matmul": 0},
+          f"phase 23 (a): launches {counts['multiscale']} for 3 calls")
+    check(stats1[0] - stats0[0] == 3 and stats1[2].get(1, 0) - stats0[2].get(1, 0) == 3,
+          f"phase 23 (a): statistics {stats0} -> {stats1} for one call per bucket")
+    routed = [multi[dev].pick_bucket(h, w) for h, w in frames]
+    check(routed == list(DEFAULT_BUCKETS), f"phase 23 (a): routed to {routed}")
+    errs = [same_detections(got[hw], multi[cpu](frame), f"phase 23 (a) {hw[1]}x{hw[0]}") for hw, frame in frames.items()]
+    found = sum(len(d) for d, _ in got.values())
+    check(found >= len(frames), f"phase 23 (a): {found} faces in {len(frames)} frames")
+    bucket_ms = {hw: cuda_ms(lambda: multi[dev](frame), 5) for hw, frame in frames.items()}
+    print(
+        f"phase 23 (a) MultiScaleDetection {list(DEFAULT_BUCKETS)} on the trained 640 detector: 640x480, 1280x720, "
+        f"1920x1080 routed to {routed}; {found} faces; card vs CPU max box err {max(errs):.3g} px; K1 launches "
+        f"{counts['multiscale']['nms_mask']} for 3 calls; statistics {stats0} -> {stats1}; ms per call: "
+        + "; ".join(f"{w}x{h} {fmt(t)}" for (h, w), t in bucket_ms.items()) + f" {card}"
+    )
+
+    # (b) TTA over the 640 and 1280 square detectors, with flip, merge "nms".
+    def tta_on(d):
+        base = RetinaFaceDetection(cfg, weights.load_model(family, det_sd), d)
+        big = RetinaFaceDetection(dataclasses.replace(cfg, image_size=(1280, 1280)), base.model, d)
+        return TTADetection([base, big], flip=True, merge="nms")
+
+    tta = {d: tta_on(d) for d in both}
+    frame = frames[(720, 1280)]
+    mirror = np.ascontiguousarray(frame[:, ::-1])
+    tta[dev](frame)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    out = tta[dev](frame)
+    out_mirror = tta[dev](mirror)
+    torch.cuda.synchronize()
+    counts["tta"] = read_counts()
+    check(counts["tta"]["nms_mask"] == 8 and sum(counts["tta"].values()) == 8,
+          f"phase 23 (b): launches {counts['tta']} for 2 images of 4 views")
+    tta_err = max(same_detections(out, tta[cpu](frame), "phase 23 (b) TTA"),
+                  same_detections(out_mirror, tta[cpu](mirror), "phase 23 (b) TTA, mirrored"))
+    check(len(out[0]) >= 1, "phase 23 (b): TTA found no face")
+    # Mirror invariance.  The mirror's views are the frame's views in another
+    # order, so their rows agree as a set.  The merged boxes agree within 1 px
+    # except where two views score a face exactly alike (saturated at 1.0):
+    # the merge keeps the first in view order, and the two runs see the
+    # views in mirrored order.
+    width = frame.shape[1]
+    rows = lambda d: d[np.lexsort(d.T[::-1])]  # noqa: E731
+    views = tta[dev].views(frame)[0]
+    views_m = flip_detections(*tta[dev].views(mirror), width)[0]
+    check(views.shape == views_m.shape, f"phase 23 (b): {len(views)} view rows, {len(views_m)} mirrored")
+    views_err = float(np.abs(rows(views) - rows(views_m)).max()) if len(views) else 0.0
+    check(views_err <= 1e-3, f"phase 23 (b): the mirror's view rows differ by {views_err} px")
+    unflipped = flip_detections(*out_mirror, width)[0]
+    check(unflipped.shape == out[0].shape, f"phase 23 (b): {len(unflipped)} faces mirrored, {len(out[0])} not")
+    within, ties = 0, 0
+    for a in out[0]:
+        b = max(unflipped, key=lambda r: box_iou(a, r))
+        if float(np.abs(a - b).max()) <= 1.0:
+            within += 1
+            continue
+        tied = a[4] == b[4] and all(float(np.abs(views - r).max(axis=1).min()) <= 1e-3 for r in (a, b))
+        check(tied, f"phase 23 (b): merged box {a} has no mirror counterpart within 1 px nor a tie ({b})")
+        ties += 1
+    single = tta[dev].detectors[0](frame)[0]
+    check(len(single) >= 1, "phase 23 (b): single-scale found no face")
+    iou = min(max(box_iou(a, b) for b in out[0]) for a in single)
+    check(iou >= 0.5, f"phase 23 (b): a single-scale box has IoU {iou} < 0.5 with every TTA box")
+    tta_ms = cuda_ms(lambda: tta[dev](frame), 3)
+    print(
+        f"phase 23 (b) TTADetection 640+1280 with flip, merge nms, on the 1280x720 frame and its mirror: "
+        f"{len(out[0])} faces; card vs CPU max box err {tta_err:.3g} px; mirror invariance: the {len(views)} view rows "
+        f"equal within {views_err:.3g} px, merged boxes {within} within 1 px and {ties} exact score ties between "
+        f"views (each a row of both runs' views); every single-scale box kept at IoU >= {iou:.3f}; K1 launches {counts['tta']['nms_mask']} for 2 images; "
+        f"ms per image {fmt(tta_ms)} {card}"
+    )
+
+    # (c) VideoPipeline over DetectionServer(batch_size=8): one face moving
+    # CLIP_STEP px a frame, gone for the frames of CLIP_GAP.
+    background = gradient(rng, 480, 640)
+    clip, truth = [], []
+    for i in range(CLIP_FRAMES):
+        img = background.copy()
+        if i not in CLIP_GAP:
+            truth.append(paste_face(img, face, 40 + CLIP_STEP * i, 120, CLIP_FACE))
+        else:
+            truth.append(None)
+        clip.append(np.clip(img, 0, 255).astype(np.uint8))
+
+    video_dets = {d: RetinaFaceDetection(cfg, weights.load_model(family, det_sd), d) for d in both}
+
+    def run_clip(d):
+        with DetectionServer(video_dets[d], batch_size=BATCH) as server:
+            return list(VideoPipeline(server, IouTracker()).run(iter(clip)))
+
+    run_clip(dev)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    tracks = run_clip(dev)
+    torch.cuda.synchronize()
+    counts["video"] = read_counts()
+    check(counts["video"]["nms_mask"] == CLIP_FRAMES // BATCH and sum(counts["video"].values()) == CLIP_FRAMES // BATCH,
+          f"phase 23 (c): launches {counts['video']} for {CLIP_FRAMES // BATCH} batches")
+    check([i for i, _ in tracks] == list(range(CLIP_FRAMES)), "phase 23 (c): frames out of order")
+    face_ids = set()
+    for (i, active), box in zip(tracks, truth):
+        on_face = [t.track_id for t in active if box is not None and box_iou(t.box, box) >= 0.5]
+        if box is not None and i > 0:
+            check(len(on_face) == 1, f"phase 23 (c): frame {i}: {len(on_face)} tracks on the face")
+        face_ids.update(on_face)
+    check(face_ids == {0}, f"phase 23 (c): the face's track ids {face_ids}")
+    video_err = 0.0
+    for (i, mine), (_, ref) in zip(tracks, run_clip(cpu)):
+        check([t.track_id for t in mine] == [t.track_id for t in ref], f"phase 23 (c): frame {i}: ids differ")
+        for a, b in zip(mine, ref):
+            video_err = max(video_err, float(np.abs(a.box - b.box).max()))
+    check(video_err <= 1e-2, f"phase 23 (c): card vs CPU track boxes {video_err} px")
+    clip_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        run_clip(dev)
+        clip_s.append(time.perf_counter() - t0)
+    fps = sorted(CLIP_FRAMES / s for s in clip_s)
+    # Where a streamed batch's time goes: the stream without the tracker,
+    # staging a batch (upload and uint8 letterbox, as the server's producer
+    # thread does it) and detect_batch on staged canvases, each alone.
+    with DetectionServer(video_dets[dev], batch_size=BATCH) as server:
+        stream_ms = cuda_ms(lambda: [None for _ in server.detect_stream(iter(clip))], 1)
+    chunk = clip[:BATCH]
+    stage_ms = cuda_ms(lambda: letterbox_u8_batch(chunk, 640, 640, dev), 5)
+    canvases, scales = letterbox_u8_batch(chunk, 640, 640, dev)
+    scales = torch.tensor(scales, device=dev)
+    detect_ms = cuda_ms(lambda: video_dets[dev].detect_batch(canvases, scales), 10)
+    print(
+        f"phase 23 (c) VideoPipeline over DetectionServer(batch_size={BATCH}), {CLIP_FRAMES} frames of 640x480, the "
+        f"face moving {CLIP_STEP} px a frame and gone in frames {CLIP_GAP}: one track id {sorted(face_ids)} on the face "
+        f"throughout, re-matched after the gap; card vs CPU: the same ids, track boxes within {video_err:.3g} px; K1 "
+        f"launches {counts['video']['nms_mask']}; frames per second (host clock, a new server and tracker per run, "
+        f"5 runs): median {fps[2]:.1f} (min {fps[0]:.1f}, max {fps[4]:.1f}); the stream alone "
+        f"{fmt(stream_ms)} per clip ({CLIP_FRAMES * 1000 / stream_ms[0]:.1f} frames/s); per batch of {BATCH}: staging "
+        f"(upload and uint8 letterbox) {fmt(stage_ms)}, detect_batch {fmt(detect_ms)} {card}"
+    )
+
+    # (d) Accuracy: the fixture detector's AP on the fixture eval set, then
+    # the official protocol on a WIDER-format set of composited frames.
+    dataset, recorded = load_ap_eval_set(os.path.join(FIXTURES, "ap_eval_set.npz"))
+    ckpt64 = os.path.join(FIXTURES, "trained_mnet64.npz")
+    ap = {d: evaluate_detector(load_trained_detector(ckpt64, device=d), dataset) for d in both}
+    check(ap[dev]["ap"] >= recorded["ap"] - 0.02, f"phase 23 (d): AP {ap[dev]} < recorded {recorded['ap']} - 0.02")
+    check(abs(ap[dev]["ap"] - ap[cpu]["ap"]) <= 1e-6 and ap[dev]["num_gt"] == ap[cpu]["num_gt"],
+          f"phase 23 (d): AP card {ap[dev]} vs CPU {ap[cpu]}")
+    event, names, images, boxes = "0--Smoke", [], {}, []
+    for i in range(12):
+        img, b = place_faces(rng, face, 480, 640, 1 + i % 3, (60, 240))
+        names.append(f"frame_{i:02d}")
+        images[f"{event}/{names[-1]}"] = img
+        boxes.append(np.stack([b[:, 0], b[:, 1], b[:, 2] - b[:, 0] + 1, b[:, 3] - b[:, 1] + 1], 1).astype(float))
+
+    def cell(entries):
+        out = np.empty((len(entries), 1), dtype=object)
+        for i, e in enumerate(entries):
+            out[i, 0] = e
+        return out
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="wider-", dir=build.BUILD_DIR)
+    try:
+        gt_mat = os.path.join(root, "wider_face_val.mat")
+        savemat(gt_mat, {"event_list": cell([event]), "file_list": cell([cell(names)]),
+                         "face_bbx_list": cell([cell(boxes)])})
+        for split, min_side in (("easy", 160), ("medium", 100), ("hard", 0)):
+            keep = [np.array([j + 1.0 for j, b in enumerate(bb) if b[3] >= min_side], float).reshape(-1, 1)
+                    for bb in boxes]
+            savemat(os.path.join(root, f"wider_{split}_val.mat"),
+                    {"event_list": cell([event]), "file_list": cell([cell(names)]), "gt_list": cell([cell(keep)])})
+        images_root = os.path.join(root, "images")
+        by_path = {os.path.join(images_root, f"{k}.jpg"): img for k, img in images.items()}
+        eval_cfg = dataclasses.replace(cfg, confidence_threshold=0.02, max_candidates=256)
+        wider, preds = {}, {}
+        for d in both:
+            det = RetinaFaceDetection(eval_cfg, weights.load_model(family, det_sd), d)
+            preds[d] = []
+            with DetectionServer(det, batch_size=BATCH) as server:
+                def detect_many(paths, server=server, out=preds[d]):
+                    for batch in server.detect_stream(by_path[p] for p in paths):
+                        out.extend(batch)
+                        yield from batch
+
+                if d == dev:
+                    zero_counts()
+                wider[d] = evaluate_wider_official(detect_many, images_root, gt_mat, find_split_mats(root))
+                if d == dev:
+                    torch.cuda.synchronize()
+                    wider_counts = read_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(not os.path.exists(root), "phase 23 (d): the WIDER set was not removed")
+    check(wider_counts["nms_mask"] == 2, f"phase 23 (d): launches {wider_counts} for 12 images at batch {BATCH}")
+    check(len(preds[dev]) == len(preds[cpu]) == len(images), "phase 23 (d): images missing from the sweep")
+    wider_err = max(same_detections(g, c, "phase 23 (d)") for g, c in zip(preds[dev], preds[cpu]))
+    ap_diff = 0.0
+    for split in ("easy", "medium", "hard"):
+        g, c = wider[dev][split], wider[cpu][split]
+        ap_diff = max(ap_diff, abs(g["ap"] - c["ap"]))
+        check(abs(g["ap"] - c["ap"]) <= 1e-3 and g["num_kept_faces"] == c["num_kept_faces"],
+              f"phase 23 (d): {split} card {g} vs CPU {c}")
+        # A floor for the sanity of the sweep only: the fixture detector was
+        # trained on other backgrounds, and the check that counts is the CPU's.
+        check(g["ap"] >= 0.5 and g["num_kept_faces"] > 0, f"phase 23 (d): {split} {g}")
+    print(
+        f"phase 23 (d) accuracy: trained_mnet64 on ap_eval_set AP {ap[dev]['ap']:.4f} (recorded "
+        f"{recorded['ap']:.4f}, gate >= recorded - 0.02), card - CPU {ap[dev]['ap'] - ap[cpu]['ap']:.3g}; official "
+        f"WIDER protocol on 12 composited 640x480 frames written under _build/ and removed, the trained 640 "
+        f"detector at 0.02 with 256 candidates through DetectionServer.detect_stream ({wider_counts['nms_mask']} K1 "
+        f"launches): "
+        + ", ".join(f"{s} {wider[dev][s]['ap']:.6f} ({wider[dev][s]['num_kept_faces']:.0f} faces)" for s in wider[dev])
+        + f"; card vs CPU: predictions within {wider_err:.3g} px, AP within {ap_diff:.3g} (bound 1e-3) {card}"
+    )
+    seconds = time.perf_counter() - t_phase
+    print(f"phase 23 offline evaluation and video: {seconds:.1f} s in all {card}")
+    return counts
+
+
 GPU_TESTS = ("-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-m", "gpu", "-rs",
              "tests/test_torch_kernels_gpu.py")
 
@@ -1761,6 +2118,9 @@ def main() -> int:
     p5 = {"cfg": cfg, "det_sd": det_sd, "pipe": pipe, "requests": requests, "results0": flat[:BATCH],
           "fas_pairs": fas_pairs[:BATCH]}
     by_path["checkpoint_serving"] = checkpoint_phase(dev, rng, face, card, p5)["counts"]
+    # Phase 23 draws its frames from a generator of its own, so that they do
+    # not change when an earlier phase draws more or less.
+    by_path.update(offline_phase(dev, np.random.default_rng(SEED + 23), face, card, det_sd))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")

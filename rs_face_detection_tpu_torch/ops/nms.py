@@ -6,6 +6,9 @@ mask (B, K) for padding, and returns a (B, K) bool keep mask with the
 reference's semantics: "+1" box areas, and box i < j suppresses box j when
 both are valid and their IoU is > the threshold.
 
+``nms_numpy`` is the host version over a handful of rows in numpy (TTA's
+cross-view merge, pipeline/tta.py), not the detector's NMS.
+
 ``nms_mask`` is what the detector calls.  On a CPU tensor it runs the plain
 version below; on a CUDA tensor it launches the CUDA kernel
 (kernels/nms.py) or raises.  There is no fallback between the two.
@@ -13,7 +16,43 @@ version below; on a CUDA tensor it launches the CUDA kernel
 
 from __future__ import annotations
 
+from typing import List
+
+import numpy as np
 import torch
+
+
+def nms_numpy(dets: np.ndarray, thresh: float) -> List[int]:
+    """Host greedy NMS over (N, 5) [x1, y1, x2, y2, score] rows: kept row
+    indices in descending-score order (stable sort on the score, "+1"
+    areas, a neighbour stays when its overlap is <= thresh).  The JAX
+    package's ``nms_numpy``; TTA merges its views' post-NMS rows with it."""
+    dets = np.asarray(dets, dtype=np.float32)
+    scores = dets[:, 4]
+    # numpy argsort is stable with kind="stable"; reference sort_by is stable.
+    order = list(np.argsort(-scores, kind="stable"))
+    keep: List[int] = []
+    while order:
+        i = order[0]
+        keep.append(int(i))
+        rest = order[1:]
+        if not rest:
+            break
+        rest_arr = np.array(rest)
+        xx1 = np.maximum(dets[i, 0], dets[rest_arr, 0])
+        yy1 = np.maximum(dets[i, 1], dets[rest_arr, 1])
+        xx2 = np.minimum(dets[i, 2], dets[rest_arr, 2])
+        yy2 = np.minimum(dets[i, 3], dets[rest_arr, 3])
+        w = np.maximum(0.0, xx2 - xx1 + 1.0)
+        h = np.maximum(0.0, yy2 - yy1 + 1.0)
+        inter = w * h
+        area_i = (dets[i, 2] - dets[i, 0] + 1.0) * (dets[i, 3] - dets[i, 1] + 1.0)
+        area_r = (dets[rest_arr, 2] - dets[rest_arr, 0] + 1.0) * (
+            dets[rest_arr, 3] - dets[rest_arr, 1] + 1.0
+        )
+        ovr = inter / (area_i + area_r - inter)
+        order = [rest[k] for k in range(len(rest)) if ovr[k] <= thresh]
+    return keep
 
 
 def iou_matrix(boxes: torch.Tensor) -> torch.Tensor:

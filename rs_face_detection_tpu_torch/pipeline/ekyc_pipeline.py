@@ -58,8 +58,8 @@ class SCRFDDetection:
     """SCRFD detector with RetinaFaceDetection's three entry points:
     ``__call__`` and ``detect_padded`` on one image of any size, letterboxed
     in float on the device; ``detect_batch`` on letterboxed uint8 frames.
-    The JAX detector's thresholds: scores >= 0.5, the top 256 candidates,
-    NMS at IoU 0.45, 100 rows."""
+    The select and NMS settings are the JAX detector's, with its defaults:
+    scores >= 0.5, the top 256 candidates, NMS at IoU 0.45, 100 rows."""
 
     def __init__(
         self,
@@ -68,11 +68,16 @@ class SCRFDDetection:
         device: DeviceLike = "cuda",
         image_size: Tuple[int, int] = (640, 640),
         registry: Optional[ModelRegistry] = None,
+        confidence_threshold: float = 0.5,
+        iou_threshold: float = 0.45,
+        max_candidates: int = 256,
+        max_detections: int = 100,
     ) -> None:
         """``model``: a SCRFD network (models/scrfd.py, or the mmdet layout
         of models/scrfd_import.py); else the registry's ``cfg.model_name``
         (models/registry.py::from_registry), whose statistics then count the
-        calls."""
+        calls.  The four thresholds go to ``sel_cfg``, the select/NMS stage
+        (an evaluation runs at ``confidence_threshold=0.02``)."""
         self.cfg = cfg or EkycFaceDetectionConfig()
         self.device = resolve_device(device)
         model, self._registry = from_registry(model, registry, self.cfg.model_name, self.device)
@@ -84,10 +89,10 @@ class SCRFDDetection:
         # The RetinaFace select/NMS stage, through a detection-config shim.
         self.sel_cfg = FaceDetectionConfig(
             image_size=self.image_size,
-            confidence_threshold=0.5,
-            iou_threshold=0.45,
-            max_candidates=256,
-            max_detections=100,
+            confidence_threshold=confidence_threshold,
+            iou_threshold=iou_threshold,
+            max_candidates=max_candidates,
+            max_detections=max_detections,
         )
 
     def forward(self, images: torch.Tensor) -> Dict[int, Dict[str, torch.Tensor]]:

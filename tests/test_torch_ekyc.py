@@ -150,3 +150,29 @@ def test_no_face_returns_the_schema_defaults(variables, images):
     got = port.verify_images(images["card"], images["selfie"])
     assert dataclasses.asdict(got) == dataclasses.asdict(EKYCResult())
     _assert_same(got, ref.verify_images(images["card"], images["selfie"]))
+
+
+def test_scrfd_select_settings_match_jax(variables, images):
+    """SCRFDDetection takes JAX's select and NMS settings: at the WIDER
+    protocol's 0.02 with 256 candidates (378 anchors at 96, so the top-k
+    truncates) every image's detections equal JAX's (counts equal, boxes and
+    landmarks within 1e-3 px, scores within 1e-5); the defaults are JAX's."""
+    from rs_face_detection_tpu.pipeline.ekyc_pipeline import SCRFDDetection as JSCRFDDetection
+    from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import SCRFDDetection
+    from test_torch_detection import _assert_same
+
+    family, jmodel, vs = variables["scrfd"]
+    model = weights.load_model(family, weights.state_dict_from_jax(family, vs))
+    fields = dict(confidence_threshold=0.02, max_candidates=256)
+    port = SCRFDDetection(model=model, device="cpu", image_size=(SIZE, SIZE), **fields)
+    ref = JSCRFDDetection(model=jmodel, variables=vs, image_size=(SIZE, SIZE), registry=None, **fields)
+    for img in images.values():
+        got, want = port(img), ref(img)
+        assert len(want[0]) > 0
+        _assert_same(*got, *want)
+    default = SCRFDDetection(model=model, device="cpu", image_size=(SIZE, SIZE)).sel_cfg
+    jdefault = JSCRFDDetection(model=jmodel, variables=vs, image_size=(SIZE, SIZE), registry=None)._sel_cfg
+    for field in ("confidence_threshold", "iou_threshold", "max_candidates", "max_detections"):
+        assert getattr(default, field) == getattr(jdefault, field), field
+    narrow = SCRFDDetection(model=model, device="cpu", image_size=(SIZE, SIZE), iou_threshold=0.3, max_detections=3)
+    assert (narrow.sel_cfg.iou_threshold, narrow.sel_cfg.max_detections) == (0.3, 3)

@@ -44,7 +44,8 @@ def test_port_imports_without_jax():
         "pipeline.quality", "pipeline.quality_assessment", "pipeline.antispoofing",
         "serving.detection_server", "utils.image_io", "models.heads", "models.registry",
         "models.checkpoint_maps", "models.clip_import", "models.scrfd_import", "models.checkpoint_io",
-        "ops.matching",
+        "ops.matching", "ops.eval", "ops.wider", "ops.wider_split", "pipeline.tracking",
+        "pipeline.multiscale", "pipeline.tta", "utils.synthetic", "utils.fixtures", "tools.eval_wider",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]
 
@@ -81,6 +82,7 @@ def test_kernel_card_tests_collect_without_jax():
         "RetinaFaceDetection", "FacePipeline", "SCRFDDetection", "EKYCPipeline",
         "FaceExtraction", "FaceQuality", "FaceQualityAssessment", "FaceAntiSpoofing", "Gallery",
         "DetectionServer", "ModelRegistry", "standard_registry", "default_registry",
+        "MultiScaleDetection", "TTADetection", "VideoPipeline", "load_trained_detector", "eval_wider",
     ],
 )
 def test_entry_points_default_to_the_card(entry):
@@ -99,8 +101,12 @@ def test_entry_points_default_to_the_card(entry):
         quality,
         quality_assessment,
     )
+    from rs_face_detection_tpu_torch.pipeline import multiscale, tracking, tta
     from rs_face_detection_tpu_torch.serving import detection_server
+    from rs_face_detection_tpu_torch.tools import eval_wider
+    from rs_face_detection_tpu_torch.utils import fixtures
 
+    ckpt = os.path.join(REPO, "tests", "fixtures", "trained_mnet64.npz")
     cls = {
         "RetinaFaceDetection": detection.RetinaFaceDetection,
         "FacePipeline": face_pipeline.FacePipeline,
@@ -115,6 +121,11 @@ def test_entry_points_default_to_the_card(entry):
         "ModelRegistry": registry.ModelRegistry,
         "standard_registry": registry.standard_registry,
         "default_registry": registry.default_registry,
+        "MultiScaleDetection": multiscale.MultiScaleDetection,
+        "TTADetection": tta.TTADetection,
+        "VideoPipeline": tracking.VideoPipeline,
+        "load_trained_detector": lambda: fixtures.load_trained_detector(ckpt),
+        "eval_wider": lambda: eval_wider.main(["--root", REPO, "--checkpoint", ckpt]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls()
