@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on a CUDA card: face-ID, eKYC, the
-weight-only int8 FaceExtraction, checkpoint serving through the registry, and
-offline evaluation and video (multi-scale, TTA, tracking, AP).
+weight-only int8 FaceExtraction, checkpoint serving through the registry,
+offline evaluation and video (multi-scale, TTA, tracking, AP), and the
+calibrated int8-activation detector.
 
 Run from the root of a checkout, with one card:
 
@@ -149,11 +150,30 @@ and the last line is never printed):
      composited frames whose .mat files it writes under _build/ and
      removes, images held in memory behind DetectionServer.detect_stream
      (the CPU's predictions, AP within 1e-3);
+ 24. the calibrated int8-activation RetinaFace (ops/quantize.py::
+     quantize_retinaface, convs through torch._int_mm), each step held
+     against the same module on the CPU, TF32 off: (a) the trained 640 mnet
+     quantized on the card with the default calibration and on the CPU
+     (amax within rtol 1e-4); on the CPU's calibration copied to the card,
+     the first int8 layer's codes and int32 accumulators torch.equal to the
+     CPU's, and every one of the 34 layers' on the same input; detect_batch
+     on 3 batches of 8 (K1 3, K2 0, 102 int8 GEMMs), card vs CPU counts
+     equal, boxes within 0.5 px, scores within 1e-3; int8 vs float on the
+     fixture face IoU >= 0.5; (b) the seeded full-width R50 at 640 likewise
+     (73 layers exact on the same input; 3 detect_batch calls of 8 with K2
+     never launched, K1 3, 219 int8 GEMMs); (c) DetectionServer(batch_size=
+     8) on 24 JPEG payloads, the loader that served printed (the native
+     one, or why not), every result equal to detect_batch on the same
+     canvases; (d) detect_batch b8 int8 against float for both backbones
+     (CUDA events, 5 windows) and one torch.profiler call of each int8
+     detector split into torch._int_mm, the quantize passes, the im2col
+     passes and the rest;
 then a JSON line of the kernels, with each one's bound on the card, its
 time on the device as ``ms`` and from Python as ``python_ms``, and
 {"ok": true, "device": ...} last.
 Every count a phase checks is set to 0 just before its path runs.  The
-main paths (phases 5, 9, 15, 18, each counted run of 22 and (a)-(c) of 23)
+main paths (phases 5, 9, 15, 18, each counted run of 22, (a)-(c) of 23 and
+(a)-(c) of 24)
 set all four kernels' counts to 0 and read all four after, and the kernels
 line reports exactly those reads.
 
@@ -1653,6 +1673,363 @@ def offline_phase(dev, rng, face, card, det_sd):
     return counts
 
 
+def detections_of(out, n):
+    """(det, kps) numpy rows per image of a PaddedDetections."""
+    det, kps, cnt = (t.cpu().numpy() for t in (out.det, out.kps, out.count))
+    return [(det[i, : cnt[i]], kps[i, : cnt[i]]) for i in range(n)]
+
+
+def int8_card_vs_cpu(cpu_model, dev_model, x):
+    """The CPU's int8-activation module and its copy on the card, on one
+    input: per layer, the CPU's input quantized and convolved on both
+    devices (``equal``: codes and int32 accumulators torch.equal at every
+    layer); and each device's own forward, whose codes may flip where a
+    float layer rounds a value to another last bit (``flipped`` of
+    ``codes``, by at most ``step``)."""
+    import torch
+
+    from rs_face_detection_tpu_torch.models.quantized import Int8ActConv2d
+    from rs_face_detection_tpu_torch.ops.int8_conv import int8_conv2d, quantize_activation
+
+    dev_convs = dict(dev_model.named_modules())
+    report = {"layers": 0, "equal": True, "codes": 0, "flipped": 0, "step": 0.0}
+    cpu_codes, hooks = {}, []
+
+    def on_cpu(name):
+        def run(mod, args):
+            card = dev_convs[name]
+            xq = quantize_activation(args[0], mod.amax)
+            xq_dev = quantize_activation(args[0].to(card.amax.device), card.amax)
+            acc = int8_conv2d(xq, mod.weight_q, mod.stride, mod.padding)
+            acc_dev = int8_conv2d(xq_dev, card.weight_q, card.stride, card.padding)
+            report["layers"] += 1
+            report["equal"] &= torch.equal(xq_dev.cpu(), xq) and torch.equal(acc_dev.cpu(), acc)
+            cpu_codes[name] = xq
+        return run
+
+    def on_dev(name):
+        def run(mod, args):
+            d = (quantize_activation(args[0], mod.amax).cpu().int() - cpu_codes[name].int()).abs()
+            report["codes"] += d.numel()
+            report["flipped"] += int((d > 0).sum())
+            report["step"] = max(report["step"], float(d.max()))
+        return run
+
+    for model, hook in ((cpu_model, on_cpu), (dev_model, on_dev)):
+        hooks += [m.register_forward_pre_hook(hook(n)) for n, m in model.named_modules()
+                  if isinstance(m, Int8ActConv2d)]
+    try:
+        with torch.no_grad():
+            cpu_model(x.cpu())
+            dev_model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return report
+
+
+def int8_profile(fn, warm=2):
+    """torch.profiler over one call of ``fn`` after ``warm`` calls, with the
+    int8 convs' quantize and im2col passes in scopes of their own: device ms
+    of aten::_int_mm, of the quantize passes, of the im2col passes, of
+    everything else, the device's busy time and the call's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from rs_face_detection_tpu_torch.models import quantized
+    from rs_face_detection_tpu_torch.ops import int8_conv
+
+    quantize, patches = quantized.quantize_activation, int8_conv._patches
+
+    def scoped(name, f):
+        def run(*args, **kwargs):
+            with record_function(name):
+                return f(*args, **kwargs)
+        return run
+
+    quantized.quantize_activation = scoped("int8::quantize", quantize)
+    int8_conv._patches = scoped("int8::im2col", patches)
+    try:
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        quantized.quantize_activation, int8_conv._patches = quantize, patches
+
+    def device_us(evt, own):
+        for attr in (("self_device_time_total", "self_cuda_time_total") if own
+                     else ("device_time_total", "cuda_time_total")):
+            if hasattr(evt, attr):
+                return float(getattr(evt, attr))
+        return 0.0
+
+    # Host-side events only: a kernel's time is its launching op's own
+    # device time, and a scope's is that of the ops under it (the scopes'
+    # device-side annotations are left out, so nothing counts twice).
+    events = [e for e in prof.events() if str(getattr(e, "device_type", "CPU")).endswith("CPU")]
+
+    def total(name):
+        return sum(device_us(e, False) for e in events if e.name == name) / 1e3
+
+    busy = sum(device_us(e, True) for e in events) / 1e3
+    int_mm, quant, im2col = total("aten::_int_mm"), total("int8::quantize"), total("int8::im2col")
+    return {"int_mm": int_mm, "quantize": quant, "im2col": im2col, "rest": busy - int_mm - quant - im2col,
+            "busy": busy, "wall": wall}
+
+
+def int8_detect_phase(dev, rng, face, card, det_sd, size=640):
+    """Phase 24: the calibrated int8-activation RetinaFace on the card, each
+    step held against the same module on the CPU, TF32 off: (a) the trained
+    mnet quantized on the card (default calibration) and on the CPU, (b) the
+    seeded full-width R50, (c) DetectionServer on JPEG bytes, (d) timings.
+    Returns the launch counts of the counted runs."""
+    import copy
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from rs_face_detection_tpu_torch.configs import FaceDetectionConfig
+    from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.models.quantized import Int8ActConv2d
+    from rs_face_detection_tpu_torch.ops import int8_conv
+    from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch
+    from rs_face_detection_tpu_torch.ops.quantize import quantize_retinaface
+    from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
+    from rs_face_detection_tpu_torch.pipeline.tracking import iou_matrix_np
+    from rs_face_detection_tpu_torch.runtime import native
+    from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
+    from rs_face_detection_tpu_torch.utils.image_io import decode_image_bytes
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    image_size = (size, size)
+    counts = {}
+
+    def amax_of(model):
+        return {n: float(m.amax) for n, m in model.named_modules() if isinstance(m, Int8ActConv2d)}
+
+    def amax_rel(a, b):
+        return max(abs(a[k] - b[k]) / b[k] for k in b)
+
+    def canvases_of(frames):
+        canvases, scales = letterbox_u8_batch(frames, size, size, dev)
+        return canvases, torch.tensor(scales, dtype=torch.float32, device=dev)
+
+    def model_input(det, canvases):
+        """The detector's network input for uint8 canvases, as forward makes it."""
+        from rs_face_detection_tpu_torch.ops.image import bgr_to_rgb, normalize
+
+        c = det.cfg
+        x = normalize(bgr_to_rgb(canvases.float()), tuple(m * c.pixel_scale for m in c.pixel_means),
+                      tuple(1.0 / s for s in c.pixel_stds)) / c.pixel_scale
+        return x.permute(0, 3, 1, 2).contiguous()
+
+    # (a) the trained mnet: calibrate on the card and on the CPU
+    family = "retinaface_mobilenet025"
+    cfg = FaceDetectionConfig(image_size=image_size)
+    mnet_float = weights.load_model(family, det_sd)
+    t0 = time.perf_counter()
+    q_dev = quantize_retinaface(mnet_float, image_size, device=dev)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    q_cpu = quantize_retinaface(mnet_float, image_size, device="cpu")
+    n_int8 = len(amax_of(q_dev))
+    check(n_int8 == 34 and not mnet_float.quant, f"phase 24 (a): {n_int8} int8 convs, float model quant {mnet_float.quant}")
+    mnet_amax = amax_rel(amax_of(q_dev), amax_of(q_cpu))
+    check(mnet_amax <= 1e-4, f"phase 24 (a): card vs CPU amax rtol {mnet_amax} > 1e-4")
+    q_cpu_dev = copy.deepcopy(q_cpu).to(dev)  # the CPU's calibration on the card
+    frames = [place_faces(rng, face, 480, 640, int(rng.integers(1, 4)), (90, 240))[0] for _ in range(3 * BATCH)]
+    batches = [canvases_of(frames[i * BATCH : (i + 1) * BATCH]) for i in range(3)]
+    det_float = RetinaFaceDetection(cfg, mnet_float, device=dev)
+    det_q = RetinaFaceDetection(cfg, q_dev, device=dev)
+    x0 = model_input(det_q, batches[0][0][:2])
+    first = q_cpu.body.stage1[0][0]
+    first_dev = q_cpu_dev.body.stage1[0][0]
+    check(isinstance(first, Int8ActConv2d) and first.weight_q.shape[1:] == (3, 3, 3), "phase 24 (a): first int8 conv")
+    codes_cpu = int8_conv.quantize_activation(x0.cpu(), first.amax)
+    codes_dev = int8_conv.quantize_activation(x0, first_dev.amax)
+    acc_cpu = int8_conv.int8_conv2d(codes_cpu, first.weight_q, first.stride, first.padding)
+    int8_conv.int_mm_calls = 0
+    acc_dev = int8_conv.int8_conv2d(codes_dev, first_dev.weight_q, first_dev.stride, first_dev.padding)
+    torch.cuda.synchronize()
+    check(int8_conv.int_mm_calls == 1, "phase 24 (a): the first layer did not run torch._int_mm on the card")
+    check(torch.equal(codes_dev.cpu(), codes_cpu) and torch.equal(acc_dev.cpu(), acc_cpu),
+          "phase 24 (a): the first int8 layer's codes or int32 accumulators differ, card vs CPU")
+    layers = int8_card_vs_cpu(q_cpu, q_cpu_dev, model_input(det_q, batches[0][0]))
+    check(layers["layers"] == 34 and layers["equal"], f"phase 24 (a): per-layer card vs CPU {layers}")
+    check(layers["flipped"] <= 0.005 * layers["codes"], f"phase 24 (a): card vs CPU codes {layers}")
+    # the counted main path: 3 detect_batch calls of 8 on the card's own calibration
+    det_q.detect_batch(*batches[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    int8_conv.int_mm_calls = 0
+    outs = [det_q.detect_batch(*b) for b in batches]
+    torch.cuda.synchronize()
+    counts["int8_detect_mnet"] = read_counts()
+    mnet_int_mm = int8_conv.int_mm_calls
+    check(counts["int8_detect_mnet"] == {"nms_mask": 3, "fused_stem": 0, "flash_attention": 0, "int8_matmul": 0},
+          f"phase 24 (a): launches {counts['int8_detect_mnet']} for 3 detect_batch calls")
+    check(mnet_int_mm == 3 * 34, f"phase 24 (a): {mnet_int_mm} int8 GEMMs for 3 calls of 34 int8 convs")
+    # card vs CPU on one module (the CPU's calibration): the same network
+    # input, but each device's own float layers (depthwise convs, BatchNorm)
+    # may round a value to another last bit, and where it sits at a rounding
+    # boundary the next int8 conv gets the neighbouring code.
+    det_cpu_on_dev = RetinaFaceDetection(cfg, q_cpu_dev, device=dev)
+    det_cpu = RetinaFaceDetection(cfg, q_cpu, device=cpu)
+    with torch.no_grad():
+        maps_dev = det_cpu_on_dev.forward(batches[0][0].float())
+        maps_cpu = det_cpu.forward(batches[0][0].cpu().float())
+    map_err = {}
+    for key in ("score", "bbox", "landmark"):
+        d = torch.cat([(maps_dev[st][key].cpu() - maps_cpu[st][key]).abs().reshape(-1) for st in maps_cpu])
+        map_err[key] = (round(float(d.max()), 4), round(float(torch.quantile(d, 0.999)), 6))
+    found = matched = strong = 0
+    box_err = 0.0
+    for canvases, scales in batches:
+        got = detections_of(det_cpu_on_dev.detect_batch(canvases, scales), BATCH)
+        want = detections_of(det_cpu.detect_batch(canvases.cpu(), scales.cpu()), BATCH)
+        for (gd, _), (wd, _) in zip(got, want):
+            found += len(gd)
+            if len(gd) == len(wd) and len(wd):
+                box_err = max(box_err, float(np.abs(gd[:, :4] - wd[:, :4]).max()))
+            for row in wd[wd[:, 4] >= 0.9]:  # a confident CPU face is found on the card
+                strong += 1
+                ious = iou_matrix_np(row[None, :4].astype(np.float32), gd[:, :4].astype(np.float32)) if len(gd) else [[0.0]]
+                matched += int(np.max(ious) >= 0.5)
+    check(matched == strong and found >= 3 * BATCH,
+          f"phase 24 (a): {matched} of {strong} confident CPU faces found on the card, {found} faces")
+    # int8 against float on the fixture face
+    frame, boxes = place_faces(rng, face, 480, 640, 1, (160, 240))
+    fd, _ = det_float(frame)
+    qd, _ = det_q(frame)
+    check(len(fd) >= 1 and len(qd) >= 1, f"phase 24 (a): float found {len(fd)}, int8 {len(qd)} on the fixture face")
+    iou = float(iou_matrix_np(qd[:1, :4].astype(np.float32), fd[:1, :4].astype(np.float32))[0, 0])
+    check(iou >= 0.5, f"phase 24 (a): int8 vs float IoU {iou} < 0.5")
+    print(
+        f"phase 24 (a) int8 mnet at {size}: trained 640 detector quantized on the card ({n_int8} int8 convs, "
+        f"default calibration, {calib_s:.2f} s) and on the CPU: amax rtol {mnet_amax:.3g} (<= 1e-4); on the "
+        f"CPU's calibration, every int8 layer's codes and int32 accumulators card == CPU on the same input "
+        f"({layers['layers']} layers, {layers['codes']} codes, torch.equal); detect_batch 3 x 8 on the card: K1 "
+        f"{counts['int8_detect_mnet']['nms_mask']}, K2 {counts['int8_detect_mnet']['fused_stem']}, "
+        f"torch._int_mm {mnet_int_mm}; card vs CPU on one module, 8 canvases: {layers['flipped']} of "
+        f"{layers['codes']} codes flipped (<= 0.5%), by at most {layers['step']:.0f} (downstream of a flip, codes move by more), maps (max, 99.9th percentile of "
+        f"abs err) {map_err}; 3 x 8 detections: {found} faces on the card, {matched} of {strong} CPU faces at >= 0.9 "
+        f"found at IoU >= 0.5, max box err {box_err:.3g} px where the counts agree; int8 vs float on the fixture "
+        f"face IoU {iou:.4f} (>= 0.5) {card}"
+    )
+
+    # (b) the seeded full-width R50 at 640, b8
+    r50_family = "retinaface_resnet50"
+    rcfg = FaceDetectionConfig(backbone="resnet50", image_size=image_size)
+    r50_float = weights.load_model(r50_family, weights.init_state(r50_family, SEED))
+    r50_q = quantize_retinaface(r50_float, image_size, device=dev)
+    r50_q_cpu = quantize_retinaface(r50_float, image_size, device="cpu")
+    n_r50 = len(amax_of(r50_q))
+    r50_amax = amax_rel(amax_of(r50_q), amax_of(r50_q_cpu))
+    check(n_r50 == 73 and r50_amax <= 1e-4, f"phase 24 (b): {n_r50} int8 convs, amax rtol {r50_amax}")
+    r50_det_q = RetinaFaceDetection(rcfg, r50_q, device=dev)
+    check(r50_det_q.stem_consts is None, "phase 24 (b): the int8 R50 folded the fused stem")
+    r50_q_cpu_dev = copy.deepcopy(r50_q_cpu).to(dev)
+    r50_layers = int8_card_vs_cpu(r50_q_cpu, r50_q_cpu_dev, model_input(r50_det_q, batches[0][0][:2]))
+    check(r50_layers["layers"] == 73 and r50_layers["equal"], f"phase 24 (b): per-layer card vs CPU {r50_layers}")
+    r50_det_q.detect_batch(*batches[0])  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    int8_conv.int_mm_calls = 0
+    r50_outs = [r50_det_q.detect_batch(*b) for b in batches]
+    torch.cuda.synchronize()
+    counts["int8_detect_r50"] = read_counts()
+    r50_int_mm = int8_conv.int_mm_calls
+    check(counts["int8_detect_r50"] == {"nms_mask": 3, "fused_stem": 0, "flash_attention": 0, "int8_matmul": 0},
+          f"phase 24 (b): launches {counts['int8_detect_r50']} for 3 detect_batch calls (K2 must stay 0)")
+    check(r50_int_mm == 3 * 73, f"phase 24 (b): {r50_int_mm} int8 GEMMs for 3 calls of 73 int8 convs")
+    for out in r50_outs:
+        check(bool(torch.isfinite(out.det).all()) and bool(torch.isfinite(out.kps).all()), "phase 24 (b): non-finite rows")
+    two = (batches[0][0][:2], batches[0][1][:2])
+    r50_dev_rows = detections_of(RetinaFaceDetection(rcfg, r50_q_cpu_dev, device=dev).detect_batch(*two), 2)
+    r50_cpu_rows = detections_of(RetinaFaceDetection(rcfg, r50_q_cpu, device=cpu).detect_batch(
+        two[0].cpu(), two[1].cpu()), 2)
+    r50_box = max([float(np.abs(g[:, :4] - w[:, :4]).max()) for (g, _), (w, _) in zip(r50_dev_rows, r50_cpu_rows)
+                   if len(g) == len(w) and len(w)] or [0.0])
+    same_counts = sum(len(g) == len(w) for (g, _), (w, _) in zip(r50_dev_rows, r50_cpu_rows))
+    print(
+        f"phase 24 (b) int8 R50 at {size}, seeded full width, b8: {n_r50} int8 convs, amax card vs CPU rtol "
+        f"{r50_amax:.3g} (<= 1e-4); on the CPU's calibration every int8 layer's codes and int32 accumulators "
+        f"card == CPU on the same input ({r50_layers['layers']} layers, {r50_layers['codes']} codes); detect_batch "
+        f"3 x 8: K2 {counts['int8_detect_r50']['fused_stem']}, K1 {counts['int8_detect_r50']['nms_mask']}, "
+        f"torch._int_mm {r50_int_mm}; whole detector card vs CPU (one module, codes free to flip where an f32 "
+        f"epilogue differs in its last bit), 2 frames: {r50_layers['flipped']} of {r50_layers['codes']} codes "
+        f"flipped, by at most {r50_layers['step']:.0f}; {same_counts}/2 with equal counts, max box difference there "
+        f"{r50_box:.3g} px {card}"
+    )
+
+    # (c) DetectionServer on JPEG bytes
+    payloads = []
+    for f in frames:
+        ok, jpg = cv2.imencode(".jpg", f, [cv2.IMWRITE_JPEG_QUALITY, 90])
+        check(ok, "phase 24 (c): cv2.imencode failed")
+        payloads.append(jpg.tobytes())
+    with DetectionServer(det_q, batch_size=BATCH) as server:
+        loader = "native" if server._native is not None else "cv2"
+        zero_counts()
+        served = [r for i in range(0, len(payloads), BATCH) for r in server.detect_batch(payloads[i : i + BATCH])]
+        torch.cuda.synchronize()
+        counts["int8_detect_server"] = read_counts()
+        batches_by = dict(server.loader_batches)
+    check(batches_by[loader] == 3, f"phase 24 (c): loader batches {batches_by}")
+    direct = []
+    for i in range(0, len(payloads), BATCH):
+        chunk = payloads[i : i + BATCH]
+        if loader == "native":
+            imgs, scales, ok = native.decode_letterbox_batch(chunk, size, size)
+            canvases, scales = torch.from_numpy(imgs).to(dev), torch.from_numpy(scales).to(dev)
+        else:
+            canvases, scales = canvases_of([decode_image_bytes(p) for p in chunk])
+        direct += detections_of(det_q.detect_batch(canvases, scales), len(chunk))
+    check(len(served) == len(direct), f"phase 24 (c): {len(served)} results for {len(direct)} payloads")
+    for (gd, gk), (wd, wk) in zip(served, direct):
+        check(np.array_equal(gd, wd) and np.array_equal(gk, wk), "phase 24 (c): served != detect_batch on its canvases")
+    check(counts["int8_detect_server"]["nms_mask"] == 3 and counts["int8_detect_server"]["fused_stem"] == 0,
+          f"phase 24 (c): launches {counts['int8_detect_server']}")
+    why = "" if loader == "native" else f" (the native loader did not build: {server.native_unavailable})"
+    print(
+        f"phase 24 (c) DetectionServer(int8 mnet, batch_size=8) on 24 JPEG payloads: loader {loader}{why}; "
+        f"batches {batches_by}; {sum(len(d) for d, _ in served)} faces, every result equal to detect_batch on the "
+        f"same canvases; K1 {counts['int8_detect_server']['nms_mask']} {card}"
+    )
+
+    # (d) timings: detect b8, int8 against float, CUDA events, TF32 off
+    r50_det_f = RetinaFaceDetection(rcfg, r50_float, device=dev)
+    canvases, scales = batches[0]
+    timing = {}
+    for name, det in (("mnet float", det_float), ("mnet int8", det_q), ("R50 float", r50_det_f),
+                      ("R50 int8", r50_det_q)):
+        det.detect_batch(canvases, scales)
+        timing[name] = cuda_ms(lambda det=det: det.detect_batch(canvases, scales), 5)
+    prof = int8_profile(lambda: r50_det_q.detect_batch(canvases, scales))
+    mnet_prof = int8_profile(lambda: det_q.detect_batch(canvases, scales))
+    print(
+        f"phase 24 (d) detect_batch b8 at {size} (ms per call, median/min/max over 5 windows of 5): "
+        + "; ".join(f"{k} {fmt(t)}" for k, t in timing.items())
+        + f"; int8/float mnet {timing['mnet int8'][0] / timing['mnet float'][0]:.3f}, R50 "
+        f"{timing['R50 int8'][0] / timing['R50 float'][0]:.3f} {card}"
+    )
+    for name, p in (("R50", prof), ("mnet", mnet_prof)):
+        print(
+            f"phase 24 (d) int8 {name} detect_batch b8, one call under torch.profiler: device busy "
+            f"{p['busy']:.4f} of {p['wall']:.4f} ms wall; torch._int_mm {p['int_mm']:.4f} ms, quantize passes "
+            f"{p['quantize']:.4f} ms, im2col passes {p['im2col']:.4f} ms, the rest {p['rest']:.4f} ms {card}"
+        )
+    print(f"phase 24 int8-activation detection: {time.perf_counter() - t_phase:.1f} s in all {card}")
+    return counts
+
+
 GPU_TESTS = ("-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-m", "gpu", "-rs",
              "tests/test_torch_kernels_gpu.py")
 
@@ -2121,6 +2498,7 @@ def main() -> int:
     # Phase 23 draws its frames from a generator of its own, so that they do
     # not change when an earlier phase draws more or less.
     by_path.update(offline_phase(dev, np.random.default_rng(SEED + 23), face, card, det_sd))
+    by_path.update(int8_detect_phase(dev, np.random.default_rng(SEED + 24), face, card, det_sd))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")

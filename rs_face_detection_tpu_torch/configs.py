@@ -75,7 +75,8 @@ class FaceDetectionConfig:
     max_candidates: int = 128
     max_detections: int = 100  # static post-NMS output rows
     # Candidate selection of the JAX package: "exact" (lax.top_k) or
-    # "approx" (lax.approx_max_k).  The port always selects exactly.
+    # "approx" (lax.approx_max_k).  The port always selects exactly, which
+    # is what approx_max_k returns off the TPU.
     candidate_selection: str = "exact"
     feat_strides: Tuple[int, ...] = (32, 16, 8)
     bbox_stds: Tuple[float, float, float, float] = (1.0, 1.0, 1.0, 1.0)

@@ -5,7 +5,9 @@ MobileNet-0.25 and ResNet-50 backbones, in the biubug6 key layout
 (``body``, ``fpn``, ``ssh1..3``, ``ClassHead/BboxHead/LandmarkHead.{i}.conv1x1``).
 Input (B, 3, H, W) normalized RGB; for the ResNet-50, whose stem runs on the
 2x2 space-to-depth layout, ``forward_pooled`` starts instead from the pooled
-stem output that the fused stem kernel computes from uint8 frames.  The output is the JAX model's contract: {stride:
+stem output that the fused stem kernel computes from uint8 frames.  A model
+passed through ops/quantize.py::quantize_retinaface runs its ConvBN convs
+on int8 activations (``quant``), the ResNet-50's s2d stem included.  The output is the JAX model's contract: {stride:
 {"score": (B, H, W, A), "bbox": (B, H, W, A*4), "landmark": (B, H, W, A*10)}}
 for strides 8, 16, 32.  Each head's NCHW output is permuted to NHWC before
 any reshape, so rows flatten in (h, w, a) order, the anchor table's order.
@@ -20,6 +22,7 @@ import torch.nn as nn
 
 from .layers import FPN, SSH
 from .mobilenet import NEGATIVE_SLOPE, MobileNetV1_025
+from .quantized import has_int8_activations
 from .resnet import ResNet50
 
 #: per-backbone (backbone channels C3..C5, fpn/ssh channels, leaky slope)
@@ -64,6 +67,12 @@ class RetinaFace(nn.Module):
         """Whether the backbone's stem runs on the 2x2 space-to-depth layout
         (the ResNet-50), so that ``forward_pooled`` and the fused stem apply."""
         return self.backbone == "resnet50"
+
+    @property
+    def quant(self) -> bool:
+        """Whether the convs run int8 activations (ops/quantize.py::
+        quantize_retinaface): the flax model's ``quant``."""
+        return has_int8_activations(self)
 
     def forward(self, x: torch.Tensor) -> Dict[int, Dict[str, torch.Tensor]]:
         return self._neck_and_heads(self.body(x))

@@ -29,6 +29,12 @@ leaves) bridges to the int8 modules of models/quantized.py: the same layout
 maps move q (HWIO -> OIHW; ``fc``'s NHWC rows to NCHW, kept as (K, N)), s
 stays one f32 per output channel, and int8 stays int8.
 
+A calibrated int8-activation RetinaFace tree (JAX ops/quantize.py::
+quantize_retinaface: ``params/<mod>/Conv_0/kernel_q`` int8 HWIO,
+``.../kernel_scale`` and ``quant_stats/<mod>/amax``) bridges to the
+Int8ActConv2d modules of models/quantized.py: ``weight_q`` (OIHW),
+``weight_scale`` and ``amax``; ``flax_from_state_dict`` writes it back.
+
 Public PyTorch checkpoints (biubug6 ``Resnet50_Final.pth`` and the other
 public layouts) load through models/checkpoint_maps.py and
 models/checkpoint_io.py; ``flax_from_state_dict`` is the bridge turned
@@ -54,7 +60,7 @@ from .minifas import (
     minifasnet_map,
     minifasnet_spec_from_state_dict,
 )
-from .quantized import quantize_module
+from .quantized import quantize_activations, quantize_module
 from .resnet import STAGES as RESNET50_STAGES
 from .retinaface import RetinaFace
 from .scrfd import SCRFD
@@ -341,11 +347,14 @@ def _tensor(x: np.ndarray) -> torch.Tensor:
 def _kernel(sd: Dict[str, torch.Tensor], key: str, kernel, to_torch) -> None:
     """A float kernel as ``key.weight`` = to_torch(kernel); a quantized one,
     a (q, s) pair, as ``key.weight_q`` (int8, the same map) and
-    ``key.weight_scale`` (f32, one per output channel)."""
+    ``key.weight_scale`` (f32, one per output channel), and a (q, s, amax)
+    triple also with ``key.amax``."""
     if isinstance(kernel, tuple):
-        q, s = kernel
+        q, s = kernel[:2]
         sd[f"{key}.weight_q"] = torch.from_numpy(np.ascontiguousarray(to_torch(np.asarray(q, np.int8))))
         sd[f"{key}.weight_scale"] = _tensor(s.reshape(-1))
+        if len(kernel) == 3:
+            sd[f"{key}.amax"] = _tensor(np.asarray(kernel[2]).reshape(()))
     else:
         sd[f"{key}.weight"] = _tensor(to_torch(kernel))
 
@@ -370,6 +379,12 @@ def state_dict_from_jax(
         name[: -len("/::q")]: (flat.pop(name), flat.pop(name[: -len("/::q")] + "/::s"))
         for name in [n for n in flat if n.endswith("/::q")]
     }
+    for name in [n for n in flat if n.endswith("/Conv_0/kernel_q")]:
+        conv = name[: -len("/kernel_q")]  # params/<mod>/Conv_0
+        stats = f"quant_stats/{conv[len('params/') : -len('/Conv_0')]}/amax"
+        if f"{conv}/kernel_scale" not in flat or stats not in flat:
+            raise ValueError(f"{family}: {name} without its kernel_scale or {stats}")
+        quant[f"{conv}/kernel"] = (flat.pop(name), flat.pop(f"{conv}/kernel_scale"), flat.pop(stats))
     used = set()
     sd: Dict[str, torch.Tensor] = {}
     for path, entry in (mapping if mapping is not None else mapping_for(family, spec)).items():
@@ -431,9 +446,15 @@ def state_dict_from_jax(
 
 def flax_from_state_dict(mapping: Mapping[str, Tuple], state_dict: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The inverse of state_dict_from_jax: '/'-joined float32 flax leaves from
-    a float state_dict of the port, by a family's map (``mapping_for``).
-    Raises if a tensor goes unused (``num_batches_tracked`` aside)."""
-    sd = {k: v.detach().cpu().float().numpy() for k, v in state_dict.items()}
+    a float state_dict of the port, by a family's map (``mapping_for``).  An
+    int8-activation conv (``weight_q``, ``weight_scale``, ``amax``) gives
+    JAX's ``Conv_0/kernel_q`` (int8), ``Conv_0/kernel_scale`` and
+    ``quant_stats/<mod>/amax``.  Raises if a tensor goes unused
+    (``num_batches_tracked`` aside)."""
+    sd = {
+        k: v.detach().cpu().numpy() if v.dtype == torch.int8 else v.detach().cpu().float().numpy()
+        for k, v in state_dict.items()
+    }
     used = set()
     flat: Dict[str, np.ndarray] = {}
 
@@ -444,7 +465,13 @@ def flax_from_state_dict(mapping: Mapping[str, Tuple], state_dict: Mapping[str, 
     for path, entry in mapping.items():
         key, kind = entry[0], entry[1]
         names = leaves_of(path, kind)
-        if kind == "conv":
+        if kind == "conv" and f"{key}.amax" in sd:
+            conv = path[: -len("/kernel")]  # params/<mod>/Conv_0
+            names = (f"{conv}/kernel_q", f"{conv}/kernel_scale",
+                     f"quant_stats/{conv[len('params/') : -len('/Conv_0')]}/amax")
+            values = [take(f"{key}.weight_q").transpose(2, 3, 1, 0), take(f"{key}.weight_scale"),
+                      take(f"{key}.amax")]
+        elif kind == "conv":
             values = [take(f"{key}.weight").transpose(2, 3, 1, 0)]
         elif kind == "conv_bias":
             values = [take(f"{key}.weight").transpose(2, 3, 1, 0), take(f"{key}.bias")]
@@ -479,7 +506,7 @@ def flax_from_state_dict(mapping: Mapping[str, Tuple], state_dict: Mapping[str, 
             values += [out_w.T.reshape(heads, -1, width), take(f"{key}.out_proj.bias")]
         else:
             raise ValueError(f"unknown kind {kind!r} for {path}")
-        flat.update(zip(names, (np.array(v, dtype=np.float32) for v in values)))
+        flat.update(zip(names, (np.array(v, dtype=np.int8 if v.dtype == np.int8 else np.float32) for v in values)))
     unused = sorted(k for k in sd if k not in used and not k.endswith("num_batches_tracked"))
     if unused:
         raise ValueError(f"state_dict tensors not mapped: {unused[:8]}")
@@ -552,7 +579,9 @@ def load_model(family: str, state_dict: Dict[str, torch.Tensor], softmax: bool =
     ``head.weight`` and its input size from ``positional_embedding``, SCRFD
     its backbone and neck widths from its first convs, a MiniFASNet its whole
     architecture from the shapes.  A state_dict with ``weight_q`` leaves (a
-    bridged int8 tree) loads into the int8 form of the module.  ``softmax``
+    bridged int8 tree) loads into the int8 form of the module: the
+    int8-activation form where it has ``amax`` leaves, else the weight-only
+    one.  ``softmax``
     applies to the ResNet-18 classifier and the MiniFASNet.
     """
     if family == "minifasnet":
@@ -569,7 +598,9 @@ def load_model(family: str, state_dict: Dict[str, torch.Tensor], softmax: bool =
         if family == "resnet18_classifier":
             num_outputs = int(state_dict["fc.weight"].shape[0])
         model = build_model(family, num_outputs, softmax=softmax)
-    if any(k.endswith(".weight_q") for k in state_dict):
+    if any(k.endswith(".amax") for k in state_dict):
+        quantize_activations(model)
+    elif any(k.endswith(".weight_q") for k in state_dict):
         quantize_module(model)
     model.load_state_dict(state_dict, strict=True)
     return model

@@ -23,11 +23,18 @@ Counterpart of the weight-only half of rs_face_detection_tpu/ops/quantize.py
       (exact in f32) summed in f32;
   - ``int8_matmul``: the dispatcher.  A CPU tensor takes the plain version; a
     CUDA tensor launches the CUDA kernel (kernels/int8_matmul.py) or raises.
+
+And of its full int8 inference (``calibrate``, ``quantize_retinaface``): a
+float RetinaFace becomes a copy whose ConvBN convs run int8 activations
+(models/quantized.py::Int8ActConv2d), calibrated on model-input batches.
+``quantize_model_variables`` has no counterpart: the swap quantizes each
+conv's weights where it stands.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import copy
+from typing import Iterable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -113,3 +120,65 @@ def int8_matmul(
     if x.device.type == "cpu":
         return int8_matmul_plain(x, q, scale, compute)
     raise ValueError(f"int8_matmul: unsupported device {x.device}")
+
+
+def calibrate(qmodel: nn.Module, batches: Iterable[torch.Tensor]) -> nn.Module:
+    """Record every int8-activation conv's ``amax`` over model-input batches
+    ((B, 3, H, W) float, moved to the model's device): each conv records
+    ``max |x|`` of its input, monotonically across batches, and runs in f32
+    on its dequantized weights meanwhile.  Returns the model."""
+    from ..models.quantized import Int8ActConv2d
+
+    convs = [m for m in qmodel.modules() if isinstance(m, Int8ActConv2d)]
+    device = next(qmodel.parameters()).device
+    try:
+        for conv in convs:
+            conv.calibrating = True
+        with torch.no_grad():
+            for batch in batches:
+                qmodel(torch.as_tensor(batch).to(device))
+    finally:
+        for conv in convs:
+            conv.calibrating = False
+    return qmodel
+
+
+def default_calibration_batches(
+    image_size: Sequence[int], n_calib: int = 2, calib_batch_size: int = 2, seed: int = 0
+) -> list:
+    """JAX's default calibration input, transposed to NCHW: ``n_calib``
+    batches of uint8-range pixels ``default_rng(seed).integers(0, 256,
+    (calib_batch_size, H, W, 3))`` as float32, used as model input."""
+    width, height = image_size
+    rng = np.random.default_rng(seed)
+    return [
+        torch.from_numpy(
+            rng.integers(0, 256, (calib_batch_size, height, width, 3)).astype(np.float32)
+        ).permute(0, 3, 1, 2)
+        for _ in range(n_calib)
+    ]
+
+
+def quantize_retinaface(
+    model: nn.Module,
+    image_size: Sequence[int],
+    calib_batches: Optional[Iterable[torch.Tensor]] = None,
+    n_calib: int = 2,
+    calib_batch_size: int = 2,
+    seed: int = 0,
+    device="cuda",
+) -> nn.Module:
+    """A float RetinaFace -> a calibrated int8-activation copy on ``device``
+    (the card unless the caller asks for the CPU); ``model`` is left as it
+    is.  ``image_size`` is (width, height); ``calib_batches`` are (B, 3, H,
+    W) model inputs (normalized images), by default JAX's random pixels
+    (``default_calibration_batches``): fine for throughput work, while
+    accuracy-sensitive serving passes representative images."""
+    from ..models.quantized import quantize_activations
+    from ..utils.device import resolve_device
+
+    dev = resolve_device(device)
+    qmodel = quantize_activations(copy.deepcopy(model).eval()).to(dev)
+    if calib_batches is None:
+        calib_batches = default_calibration_batches(image_size, n_calib, calib_batch_size, seed)
+    return calibrate(qmodel, calib_batches)

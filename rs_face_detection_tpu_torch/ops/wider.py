@@ -188,10 +188,12 @@ def evaluate_wider_batched(
 
 
 def find_wider_root(candidates: Sequence[str] = ()) -> Optional[str]:
-    """Locate a WIDER val tree in conventional places; None when absent."""
+    """Locate a WIDER val tree in conventional places (the JAX package's
+    list, in its order); None when absent."""
     default_candidates = [
         os.environ.get("WIDER_ROOT", ""),
         "/data/WIDER",
+        "/root/data/WIDER",
         os.path.expanduser("~/WIDER"),
     ]
     for root in [*candidates, *default_candidates]:

@@ -21,7 +21,9 @@ For the ResNet-50 the batched path (``detect_batch``, ``candidates``) runs
 the whole stem -- normalize, s2d conv, BatchNorm, ReLU, max-pool -- as one
 fused pass over the uint8 canvases (ops/stem.py; the CUDA kernel K2 on the
 card), then the network from stage 1: the JAX detector's
-``make_batched_fn(pre_s2d=True, stem="pallas")``.  The single-image path
+``make_batched_fn(pre_s2d=True, stem="pallas")``.  A quantized model
+(ops/quantize.py::quantize_retinaface) runs its own int8 stem instead, as
+JAX refuses the Pallas stem for quant models.  The single-image path
 keeps the JAX package's semantics: its float letterboxed frame goes through
 the module's own stem.
 """
@@ -163,10 +165,17 @@ class RetinaFaceDetection:
         model: Optional[nn.Module] = None,
         device: DeviceLike = "cuda",
         registry: Optional[ModelRegistry] = None,
+        stem: str = "auto",
     ) -> None:
         """``model``: a RetinaFace; else the registry's ``cfg.model_name``
         (``registry``, or the default one: models/registry.py::registry_on),
-        whose statistics then count this detector's calls."""
+        whose statistics then count this detector's calls.  ``stem``: the
+        batched path's stem, ``"auto"`` (the fused stem for a float s2d
+        model, else the module's own) or ``"fused"`` (the fused stem, or
+        ValueError: an int8-activation model never takes it, as JAX refuses
+        ``stem="pallas"`` for quant models)."""
+        if stem not in ("auto", "fused"):
+            raise ValueError(f"stem must be 'auto' or 'fused', got {stem!r}")
         self.cfg = cfg or FaceDetectionConfig()
         self.device = resolve_device(device)
         model, self._registry = from_registry(model, registry, self.cfg.model_name, self.device, detection=self.cfg)
@@ -181,12 +190,16 @@ class RetinaFaceDetection:
                 f"anchor table has {level_info[0][3]} anchors/cell but the model "
                 f"head predicts {self.model.num_anchors}"
             )
-        # The s2d models' batched path runs the fused stem (K2 on the card);
-        # its constants are folded once, from the weights the detector holds.
-        # It takes even frame sizes only, and raises on odd ones as JAX's
-        # stem="pallas" does; the single-image path takes any size.
+        # The float s2d models' batched path runs the fused stem (K2 on the
+        # card); its constants are folded once, from the weights the detector
+        # holds.  It takes even frame sizes only, and raises on odd ones as
+        # JAX's stem="pallas" does; the single-image path takes any size.  A
+        # quantized model runs its own int8 stem: K2 holds float weights.
+        fused_ok = self.model.uses_s2d_stem() and not getattr(self.model, "quant", False)
+        if stem == "fused" and not fused_ok:
+            raise ValueError("stem='fused' needs a float model with the s2d stem (the ResNet-50), not an int8 one")
         self.stem_consts = None
-        if self.model.uses_s2d_stem():
+        if fused_ok:
             body = self.model.body
             self.stem_consts = fold_stem_params(
                 body.conv1.weight.detach().permute(2, 3, 1, 0),  # OIHW -> HWIO

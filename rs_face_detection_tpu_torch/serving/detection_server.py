@@ -2,13 +2,25 @@
 
 Counterpart of rs_face_detection_tpu/parallel/serving.py::DetectionServer
 without the mesh: one detector on one device.  A batch of payloads (encoded
-bytes or (H, W, 3) uint8 BGR arrays) is decoded on a thread pool, uploaded,
-letterboxed on the device with OpenCV's uint8 INTER_LINEAR arithmetic
-(ops/image.py::letterbox_u8_batch, so the canvases equal the JAX server's), and
-detected in one ``detect_batch`` call.
+bytes or (H, W, 3) uint8 BGR arrays) becomes letterboxed uint8 canvases one
+of two ways, as in the JAX server:
+
+  - the native loader (runtime/native.py, ``use_native_loader=True``, the
+    default, when its library builds): a batch whose every payload is JPEG
+    bytes is decoded and letterboxed by libjpeg on host threads, and the
+    canvases are uploaded; a batch it cannot take whole (arrays, PNG bytes,
+    a payload it fails to decode) takes the other way;
+  - otherwise payloads are decoded on a thread pool, uploaded, and
+    letterboxed on the device with OpenCV's uint8 INTER_LINEAR arithmetic
+    (ops/image.py::letterbox_u8_batch, equal to the JAX server's fallback).
+
+Either way the canvases equal the JAX server's for the same payloads and
+loader, and are detected in one ``detect_batch`` call.  ``loader_batches``
+counts the batches each way served.
 
 On a CUDA device the upload and the letterbox of a batch run on a side
-stream: frames go through pinned host buffers with non-blocking copies, and
+stream: frames or canvases go through pinned host buffers with non-blocking
+copies, and
 the compute stream waits on an event before it reads the canvases.  In
 ``detect_stream`` a producer thread stages batch k+1 this way while the
 consumer's batch k computes -- the role of the JAX server's ``_stage``.
@@ -66,7 +78,9 @@ class DetectionServer:
     ``record_traffic(n, seconds)`` (default: ``RetinaFaceDetection()``, from
     the default registry on the card); batch_size: most payloads per
     ``detect_batch`` call and per streamed batch; decode_workers: threads
-    that decode encoded payloads.
+    that decode encoded payloads; use_native_loader: take the native JPEG
+    loader when its library builds (``native_unavailable`` then says why it
+    did not).
     """
 
     def __init__(
@@ -74,14 +88,25 @@ class DetectionServer:
         detector: Optional[Any] = None,
         batch_size: int = 8,
         decode_workers: int = 4,
+        use_native_loader: bool = True,
     ) -> None:
         if batch_size < 1:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        self._native = None
+        self.native_unavailable: Optional[str] = "use_native_loader=False"
+        if use_native_loader:
+            from ..runtime import native
+
+            self.native_unavailable = native.unavailable_reason()
+            if self.native_unavailable is None:
+                self._native = native
+        self.loader_batches = {"native": 0, "cv2": 0}
         self.detector = detector or RetinaFaceDetection()
         self.image_size = detector_image_size(self.detector)
         self.device = self.detector.device
         self.batch_size = batch_size
         self._pool = ThreadPoolExecutor(max_workers=decode_workers)
+        self._decode_workers = decode_workers
         self._copy_stream = (
             torch.cuda.Stream(device=self.device) if self.device.type == "cuda" else None
         )
@@ -107,14 +132,35 @@ class DetectionServer:
             return decode_image_bytes(payload)
         return np.ascontiguousarray(payload)
 
+    def _native_canvases(self, payloads: Sequence):
+        """(canvases (n, H, W, 3) uint8, scales) from the native loader on the
+        host, or None when it cannot take the whole batch."""
+        if self._native is None or not all(isinstance(p, (bytes, bytearray)) for p in payloads):
+            return None
+        width, height = self.image_size
+        imgs, scales, ok = self._native.decode_letterbox_batch(
+            payloads, width, height, num_threads=self._decode_workers
+        )
+        return (imgs, scales) if ok.all() else None
+
     def _stage(self, payloads: Sequence) -> _Staged:
-        """Decode, upload and letterbox a batch on the side stream."""
-        images = list(self._pool.map(self._decode, payloads))
+        """Decode, letterbox and upload a batch on the side stream."""
+        native = self._native_canvases(payloads)
+        images = None if native is not None else list(self._pool.map(self._decode, payloads))
         width, height = self.image_size
         cuda = self._copy_stream is not None
         ctx = torch.cuda.stream(self._copy_stream) if cuda else contextlib.nullcontext()
         with ctx:
-            canvases, scales = letterbox_u8_batch(images, width, height, self.device)
+            if native is not None:
+                self.loader_batches["native"] += 1
+                canvases = torch.from_numpy(native[0])
+                if cuda:
+                    canvases = canvases.pin_memory()
+                canvases = canvases.to(self.device, non_blocking=True)
+                scales = native[1]
+            else:
+                self.loader_batches["cv2"] += 1
+                canvases, scales = letterbox_u8_batch(images, width, height, self.device)
             scales_dev = torch.tensor(scales, dtype=torch.float32, device=self.device)
             ready = None
             if cuda:

@@ -13,14 +13,19 @@ ops/wider_split.py, with the gates of tests/test_real_collage.py:
     7): >= 0.90/0.90/0.85, flip TTA >= single - 0.03 on every split.
 
 The port's per-image predictions on the first 4 collages are held against
-the JAX detector's within 1e-3 px and 1e-5 in score.  ``--candidate-selection
-approx`` (a TPU partial reduce) raises, and the entry point defaults to the
-card.
+the JAX detector's within 1e-3 px and 1e-5 in score.  The batched entry
+point (the DetectionServer with its default native JPEG loader) scores the
+JAX entry point's batched AP to the printed digit.  ``--candidate-selection
+approx`` runs the exact top-k (what ``jax.lax.approx_max_k`` returns off the
+TPU) and holds JAX's approx gate: within 0.02 AP of exact at a 64-candidate
+cap, below the 168 anchors, and equal to the JAX entry point's approx AP.
+The entry point defaults to the card.
 """
 
 import importlib.util
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -58,6 +63,23 @@ def _run(root, *extra, capsys, ckpt=CKPT, size=64):
             "--split", "all", "--device", "cpu", *extra]
     assert eval_wider.main(argv) == 0
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _run_jax(root, *extra, capsys, ckpt=CKPT, size=64):
+    """The JAX package's entry point (tools/eval_wider.py) on the same tree."""
+    argv = ["eval_wider.py", "--root", root, "--backbone", "mobilenet025", "--checkpoint", ckpt,
+            "--size", str(size), "--split", "all", *extra]
+    tool = _load_tool("eval_wider")
+    saved, sys.argv = sys.argv, argv
+    try:
+        assert tool.main() == 0
+    finally:
+        sys.argv = saved
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def _printed(res):
+    return {split: f"{res[split]['ap']:.4f}" for split in ("easy", "medium", "hard")}
 
 
 def _gate(res, easy, medium, hard):
@@ -127,10 +149,46 @@ def test_production_shape_gate(tmp_path_factory, capsys):
         assert flip[split]["ap"] >= res[split]["ap"] - 0.03, (flip, res)
 
 
+def test_batched_ap_equals_the_jax_entry_point(collage_tree, capsys):
+    """Both entry points batched through their DetectionServer, whose
+    default loader is the native one (the JAX package printed
+    0.9860/0.9924/0.9265 for this tree)."""
+    from rs_face_detection_tpu_torch.runtime import native
+
+    assert native.available(), native.unavailable_reason()
+    port = _run(collage_tree, "--batch-size=8", capsys=capsys)
+    ref = _run_jax(collage_tree, "--batch-size=8", capsys=capsys)
+    assert _printed(port) == _printed(ref), (port, ref)
+    assert _printed(port)["hard"] == "0.9265", port
+
+
+def test_approx_topk_ap_parity_on_real_collages(collage_tree, capsys):
+    """tests/test_real_collage.py's approx gate on the port's entry point: at
+    a cap of 64 candidates, below the 168 anchors of mnet025 at 64x64, approx
+    is within 0.02 AP of exact on every split, and equal to the JAX entry
+    point's approx run to the printed digit."""
+    from rs_face_detection_tpu_torch.configs import RPN_ANCHOR_CFG
+    from rs_face_detection_tpu_torch.ops.anchors import full_anchor_table
+
+    n_anchors = full_anchor_table((64, 64), RPN_ANCHOR_CFG)[0].shape[0]
+    cap = "64"
+    assert int(cap) < n_anchors == 168
+    exact = _run(collage_tree, "--no-batched", "--max-candidates", cap, capsys=capsys)
+    approx = _run(collage_tree, "--no-batched", "--max-candidates", cap, "--candidate-selection", "approx",
+                  capsys=capsys)
+    assert exact["hard"]["ap"] >= 0.35, exact
+    for split in ("easy", "medium", "hard"):
+        assert abs(approx[split]["ap"] - exact[split]["ap"]) <= 0.02, (split, exact, approx)
+    ref = _run_jax(collage_tree, "--no-batched", "--max-candidates", cap, "--candidate-selection", "approx",
+                   capsys=capsys)
+    assert _printed(approx) == _printed(ref), (approx, ref)
+
+
 def test_approx_selection_raises_and_the_card_is_the_default(collage_tree):
+    """Without --device the entry point takes the card, with either
+    candidate selection: here, without one, both raise."""
     argv = ["--root", collage_tree, "--checkpoint", CKPT, "--size", "64", "--backbone", "mobilenet025"]
-    with pytest.raises(ValueError, match="exact top-k only"):
-        eval_wider.main([*argv, "--device", "cpu", "--candidate-selection", "approx"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA is not available"):
-            eval_wider.main(argv)
+        for extra in ([], ["--candidate-selection", "approx"]):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                eval_wider.main([*argv, *extra])

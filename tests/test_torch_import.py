@@ -46,6 +46,7 @@ def test_port_imports_without_jax():
         "models.checkpoint_maps", "models.clip_import", "models.scrfd_import", "models.checkpoint_io",
         "ops.matching", "ops.eval", "ops.wider", "ops.wider_split", "pipeline.tracking",
         "pipeline.multiscale", "pipeline.tta", "utils.synthetic", "utils.fixtures", "tools.eval_wider",
+        "ops.int8_conv", "runtime.native",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]
 
@@ -83,6 +84,7 @@ def test_kernel_card_tests_collect_without_jax():
         "FaceExtraction", "FaceQuality", "FaceQualityAssessment", "FaceAntiSpoofing", "Gallery",
         "DetectionServer", "ModelRegistry", "standard_registry", "default_registry",
         "MultiScaleDetection", "TTADetection", "VideoPipeline", "load_trained_detector", "eval_wider",
+        "quantize_retinaface",
     ],
 )
 def test_entry_points_default_to_the_card(entry):
@@ -91,7 +93,8 @@ def test_entry_points_default_to_the_card(entry):
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA card: the default device is valid here")
     from rs_face_detection_tpu_torch.models import registry
-    from rs_face_detection_tpu_torch.ops import matching
+    from rs_face_detection_tpu_torch.models.retinaface import RetinaFace
+    from rs_face_detection_tpu_torch.ops import matching, quantize
     from rs_face_detection_tpu_torch.pipeline import (
         antispoofing,
         detection,
@@ -126,6 +129,7 @@ def test_entry_points_default_to_the_card(entry):
         "VideoPipeline": tracking.VideoPipeline,
         "load_trained_detector": lambda: fixtures.load_trained_detector(ckpt),
         "eval_wider": lambda: eval_wider.main(["--root", REPO, "--checkpoint", ckpt]),
+        "quantize_retinaface": lambda: quantize.quantize_retinaface(RetinaFace(), (64, 64)),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls()

@@ -1,5 +1,5 @@
-"""The port's four CUDA kernels against their plain PyTorch versions, on the
-card.  Every test here is marked ``gpu`` and skips where there is no card.
+"""The port's four CUDA kernels against their plain PyTorch versions, and its
+int8 conv against the CPU's, on the card.  Every test here is marked ``gpu`` and skips where there is no card.
 
 This file imports only numpy, pytest, torch and the port, so it runs where
 JAX is not installed.  tests/conftest.py imports JAX, so on the card run it
@@ -16,7 +16,9 @@ Tolerances:
     card and on the CPU;
   - K2 (csrc/stem.cu): 1e-5 of the output's magnitude, TF32 off;
   - K3 (csrc/int8_matmul.cu): 1e-5 of sum_k |x_k w_kn| per output;
-  - K4 (csrc/attention.cu): f32 2e-5 of max|v|, bf16 1e-2 of max|v|.
+  - K4 (csrc/attention.cu): f32 2e-5 of max|v|, bf16 1e-2 of max|v|;
+  - the int8-activation conv of ops/int8_conv.py (torch._int_mm, a library
+    GEMM): codes and int32 accumulators bit-exact with the CPU's.
 """
 
 import numpy as np
@@ -337,3 +339,46 @@ def test_int8_matmul_kernel_repeats_and_graph(cuda, compute):
     torch.cuda.synchronize()
     assert torch.equal(first, second)
     assert torch.equal(captured, first)
+
+
+# --- the int8-activation conv (torch._int_mm, no kernel of the port's own) --
+
+
+def _ties_amax(rng):
+    """An amax whose f32 quotient amax / 127 differs from amax times the f32
+    reciprocal of 127, and inputs that sit at rounding ties of the quotient."""
+    while True:
+        amax = np.float32(rng.uniform(100, 900))
+        sx = amax / np.float32(127)
+        if sx != amax * (np.float32(1) / np.float32(127)):
+            return amax, sx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "case",
+    [((1, 1, 32, 16), (1, 1), ((0, 0), (0, 0))), ((3, 3, 3, 8), (2, 2), ((1, 1), (1, 1))),
+     ((3, 3, 64, 64), (2, 2), ((1, 1), (1, 1))), ((4, 4, 12, 64), (1, 1), ((2, 1), (2, 1))),
+     ((1, 1, 64, 256), (2, 2), ((0, 0), (0, 0)))],
+    ids=["1x1_s1", "3x3_s2_k27", "3x3_s2", "stem_4x4_pad21", "1x1_s2"],
+)
+def test_int8_conv_on_the_card_equals_the_cpu(cuda, case):
+    """Codes and int32 accumulators on the card equal the CPU's bit for bit,
+    on inputs at rounding ties (the scale is a true division on the card
+    too) and at sizes that pad M, K and N."""
+    from rs_face_detection_tpu_torch.ops.int8_conv import int8_conv2d, quantize_activation
+
+    (kh, kw, i, o), stride, padding = case
+    rng = np.random.default_rng(kh * 100 + i)
+    amax, sx = _ties_amax(rng)
+    halves = rng.integers(-254, 255, size=(3, i, 9, 7)).astype(np.float32) / 2
+    x = torch.from_numpy((halves * sx).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-127, 128, size=(o, i, kh, kw)).astype(np.int8))
+    a = torch.tensor(amax)
+    codes = quantize_activation(x, a)
+    codes_dev = quantize_activation(x.to(cuda), a.to(cuda))
+    assert torch.equal(codes_dev.cpu(), codes)
+    for b in (3, 1):  # b1 of a 9x7 frame pads M at stride 2
+        acc = int8_conv2d(codes[:b], w, stride, padding)
+        acc_dev = int8_conv2d(codes_dev[:b], w.to(cuda), stride, padding)
+        assert acc_dev.dtype == torch.int32 and torch.equal(acc_dev.cpu(), acc)

@@ -5,8 +5,11 @@
     1e-3 px, scores within 1e-5: the batch path's uint8 canvas and the host
     call's float frame hold the same values, the networks sum in other
     orders);
-  - ``detect_batch`` equals the JAX DetectionServer on frames it must resize
-    (same bounds), since both letterbox with OpenCV's uint8 arithmetic;
+  - ``detect_batch`` equals the JAX DetectionServer (same bounds) with
+    either loader: without the native one on frames it must resize (arrays
+    and PNG bytes), since both letterbox with OpenCV's uint8 arithmetic;
+    with the default native JPEG loader on the 20 JPEG collages of
+    tests/test_torch_eval_wider.py's tree, at that file's eval settings;
   - ``detect_stream`` equals ``detect_batch`` per batch, bit for bit, with a
     partial last batch, on the R50 detector (fused stem path);
   - a producer error reaches the consumer after the batches already staged;
@@ -81,16 +84,53 @@ def test_detect_batch_equals_per_image_call(mnet, frames):
     _same_results(got, [mnet(f) for f in frames])
 
 
-def test_detect_batch_matches_jax_server(mnet, frames):
+def _collage_jpegs(tmp_path_factory):
+    """The JPEG bytes of tests/test_torch_eval_wider.py's collage tree."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(__file__), "..", "tools", "make_collage_set.py")
+    spec = importlib.util.spec_from_file_location("make_collage_set", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    out = str(tmp_path_factory.mktemp("collage_jpegs"))
+    tool.build_collage_set(out, FIXTURES, seed=0, n_images=20)
+    images = os.path.join(out, "WIDER_val", "images", "0--Collage")
+    payloads = []
+    for name in sorted(os.listdir(images)):
+        with open(os.path.join(images, name), "rb") as f:
+            payloads.append(f.read())
+    return payloads
+
+
+@pytest.mark.parametrize("use_native_loader", [False, True], ids=["cv2", "native"])
+def test_detect_batch_matches_jax_server(mnet, frames, use_native_loader, tmp_path_factory):
     cv2 = pytest.importorskip("cv2")
-    batch = [cv2.resize(f, (97, 99), interpolation=cv2.INTER_LINEAR) for f in frames[:4]]
-    batch.append(cv2.resize(frames[4], (128, 128), interpolation=cv2.INTER_LINEAR))
-    ok, png = cv2.imencode(".png", frames[5])
-    assert ok
-    batch.append(png.tobytes())
-    ref = JDetectionServer(load_trained_detector(TRAINED, CFG), batch_size=8, use_native_loader=False)
-    with ref, DetectionServer(mnet, batch_size=8) as server:
-        _same_results(server.detect_batch(batch), ref.detect_batch(batch))
+    if not use_native_loader:
+        batch = [cv2.resize(f, (97, 99), interpolation=cv2.INTER_LINEAR) for f in frames[:4]]
+        batch.append(cv2.resize(frames[4], (128, 128), interpolation=cv2.INTER_LINEAR))
+        ok, png = cv2.imencode(".png", frames[5])
+        assert ok
+        batch.append(png.tobytes())
+        ref = JDetectionServer(load_trained_detector(TRAINED, CFG), batch_size=8, use_native_loader=False)
+        with ref, DetectionServer(mnet, batch_size=8, use_native_loader=False) as server:
+            _same_results(server.detect_batch(batch), ref.detect_batch(batch))
+        assert server.loader_batches == {"native": 0, "cv2": 1}
+        return
+    from rs_face_detection_tpu_torch.configs import FaceDetectionConfig as PortConfig
+    from rs_face_detection_tpu_torch.utils.fixtures import load_trained_detector as port_detector
+
+    payloads = _collage_jpegs(tmp_path_factory)
+    assert len(payloads) == 20
+    fields = dict(image_size=(64, 64), confidence_threshold=0.02, max_candidates=256)
+    ckpt = os.path.join(FIXTURES, "trained_real64.npz")
+    ref = JDetectionServer(load_trained_detector(ckpt, FaceDetectionConfig(**fields)), batch_size=8)
+    port = port_detector(ckpt, PortConfig(**fields), device="cpu")
+    with ref, DetectionServer(port, batch_size=8) as server:
+        assert server._native is not None, server.native_unavailable
+        assert ref._native is not None
+        for i in range(0, len(payloads), 8):
+            _same_results(server.detect_batch(payloads[i : i + 8]), ref.detect_batch(payloads[i : i + 8]))
+    assert server.loader_batches == {"native": 3, "cv2": 0}
 
 
 def test_detect_stream_equals_detect_batch(r50, frames):

@@ -131,6 +131,41 @@ def test_find_wider_root_equals_jax(tmp_path, monkeypatch):
     assert pwider.find_wider_root(["/nonexistent", str(tmp_path)]) == str(tmp_path)
 
 
+def test_find_wider_root_searches_the_jax_places(tmp_path, monkeypatch):
+    """With no argument, ``$WIDER_ROOT`` empty and ``HOME`` a temp dir, both
+    functions probe the same places in the same order; then each place in
+    turn is made to hold a tree (the probes of that place answered by a temp
+    tree), and both find it."""
+    home = tmp_path / "home"
+    home.mkdir()
+    monkeypatch.setenv("HOME", str(home))
+    monkeypatch.setenv("WIDER_ROOT", "")
+    tree = tmp_path / "tree"
+    (tree / "wider_face_split").mkdir(parents=True)
+    (tree / "wider_face_split" / "wider_face_val_bbx_gt.txt").write_text("")
+    (tree / "WIDER_val" / "images").mkdir(parents=True)
+    exists, isdir = os.path.exists, os.path.isdir
+    probed, present = [], [None]
+
+    def redirect(path):
+        path = str(path)
+        probed.append(path)
+        root = present[0]
+        return str(tree) + path[len(root):] if root and path.startswith(root + os.sep) else path
+
+    monkeypatch.setattr(os.path, "exists", lambda p: exists(redirect(p)))
+    monkeypatch.setattr(os.path, "isdir", lambda p: isdir(redirect(p)))
+    assert jwider.find_wider_root() is None
+    jax_probes, probed[:] = list(probed), []
+    assert pwider.find_wider_root() is None
+    assert probed == jax_probes and len(jax_probes) >= 3, (probed, jax_probes)
+    places = [p[: -len("/wider_face_split/wider_face_val_bbx_gt.txt")] for p in jax_probes if p.endswith(".txt")]
+    assert str(home / "WIDER") in places
+    for place in places:
+        present[0] = place
+        assert pwider.find_wider_root() == jwider.find_wider_root() == place
+
+
 def test_fixture_tree_ap_equals_jax_serial_and_batched(tmp_path):
     from rs_face_detection_tpu.utils.fixtures import load_trained_detector as jload
     from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
