@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on a CUDA card: face-ID, eKYC, the
 weight-only int8 FaceExtraction, checkpoint serving through the registry,
-offline evaluation and video (multi-scale, TTA, tracking, AP), and the
-calibrated int8-activation detector.
+offline evaluation and video (multi-scale, TTA, tracking, AP), the
+calibrated int8-activation detector, and the gRPC serving runtime.
 
 Run from the root of a checkout, with one card:
 
@@ -168,12 +168,30 @@ and the last line is never printed):
      (CUDA events, 5 windows) and one torch.profiler call of each int8
      detector split into torch._int_mm, the quantize passes, the im2col
      passes and the rest;
+ 25. the serving runtime (runtime/server.py::serve with the Triton wire of
+     runtime/wire.py beside the JSON facade, on a localhost port) over one
+     registry on the card: phase 5's trained 640 mnet and seeded heads,
+     phase 15's eKYC models with bf16 towers.  The counted run: (a) the
+     reference's Triton flow, 3 x ModelConfig then ModelInfer on the
+     detector (9 maps through detection_triton_view), both heads and a
+     tower (24 K4), each np.array_equal to the module's forward on the
+     card; (b) the facade: Extract and Detect x8 on JPEG frames (K1 +1
+     each), DetectStream x24 (3 batches, K1 +3), EkycVerify x3 (K1 +2, K4
+     +48 each), each equal to the direct call, and Detect and Extract from
+     8 client threads at once on a dynamic-batching server (fewer batches
+     than requests, K1 +1 per batch, within 1e-3 px and cosine 0.9999 of
+     the direct batch); then (c) a system-shared-memory ModelInfer equal to
+     the inline one and CUDA shared memory refused UNIMPLEMENTED; (d)
+     TraceSetting around one Extract writes a Chrome trace naming K1's
+     kernel; (e) round trips against the direct calls: ModelInfer b1 and
+     b8 raw fp32 (host clock) against the forward alone (CUDA events),
+     Extract, EkycVerify, and dynamic-batching Detect in img/s;
 then a JSON line of the kernels, with each one's bound on the card, its
 time on the device as ``ms`` and from Python as ``python_ms``, and
 {"ok": true, "device": ...} last.
 Every count a phase checks is set to 0 just before its path runs.  The
-main paths (phases 5, 9, 15, 18, each counted run of 22, (a)-(c) of 23 and
-(a)-(c) of 24)
+main paths (phases 5, 9, 15, 18, each counted run of 22, (a)-(c) of 23,
+(a)-(c) of 24 and (a)+(b) of 25)
 set all four kernels' counts to 0 and read all four after, and the kernels
 line reports exactly those reads.
 
@@ -727,6 +745,8 @@ def ekyc_phases(dev, rng, face, card):
         "counts": counts,
         "nms_err": k1_err,
         "k1_b1": k1_b1,
+        "sds": sds,
+        "pairs": pairs,
         "k4": {
             "name": "flash_attention",
             "route": "cuda",
@@ -2034,6 +2054,300 @@ GPU_TESTS = ("-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-m", "gp
              "tests/test_torch_kernels_gpu.py")
 
 
+def host_ms(fn, n, windows=5):
+    """ms per call of `fn` on the host clock, each window ending in a device
+    sync: (median, min, max) over windows of `n` calls."""
+    import statistics
+
+    import torch
+
+    per_call = []
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        per_call.append((time.perf_counter() - t0) * 1e3 / n)
+    return statistics.median(per_call), min(per_call), max(per_call)
+
+
+def serving_phase(dev, card, p5, ekyc):
+    """Phase 25: the serving runtime on the card.  One registry on the card
+    with phase 5's trained 640 mnet and seeded heads and phase 15's eKYC
+    models (bf16 towers), served by runtime/server.py::serve on a localhost
+    port with the Triton wire beside the facade; a second server with
+    dynamic batching on the same registry.  The counted run is every request
+    of (a) and (b); each reply is then held against the direct call on the
+    card.  (c) shared memory, (d) TraceSetting, (e) timings.  TF32 off.
+    Returns the counted run's launch counts."""
+    import shutil
+    import threading
+
+    import cv2
+    import grpc
+    import numpy as np
+    import torch
+
+    from rs_face_detection_tpu_torch.kernels.build import BUILD_DIR
+    from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.models.registry import DETECTION_OUTPUT_SPEC, EKYC_FAMILIES, ModelRegistry, ModelSpec
+    from rs_face_detection_tpu_torch.models.vit import cast_for_serving
+    from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch
+    from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import EKYCPipeline
+    from rs_face_detection_tpu_torch.runtime.server import FacePipelineClient, ekyc_reply, extract_reply, serve
+    from rs_face_detection_tpu_torch.runtime.shm import SharedRegion
+    from rs_face_detection_tpu_torch.runtime.wire import TritonWireClient, detection_triton_view
+    from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
+    from rs_face_detection_tpu_torch.utils.image_io import decode_image_bytes
+
+    t_phase = time.perf_counter()
+    cfg = p5["cfg"]
+    det_name, q_name, e_name = cfg.detection.model_name, cfg.quality.model_name, cfg.identification.model_name
+    width, height = cfg.detection.image_size
+    reg = ModelRegistry(dev)
+    reg.register(ModelSpec(det_name, (height, width, 3), DETECTION_OUTPUT_SPEC, BATCH),
+                 weights.load_model("retinaface_mobilenet025", p5["det_sd"]))
+    reg.register(ModelSpec(q_name, (112, 112, 3), "(B, 4) class probabilities"),
+                 weights.load_model("resnet18_classifier", p5["q_sd"]))
+    reg.register(ModelSpec(e_name, (112, 112, 3), "(B, 512) embedding"),
+                 weights.load_model(cfg.identification.backbone, p5["e_sd"]))
+    sizes = {"scrfd": 640, "face_id": 112, "face_attribute": 128, "face_quality_vp": 112}
+    for name, fam in EKYC_FAMILIES.items():
+        model = weights.load_model(fam, ekyc["sds"][name])
+        if fam == "clip_l14":
+            cast_for_serving(model)
+        size = sizes.get(name, 224)
+        reg.register(ModelSpec(name, (size, size, 3), "seeded"), model)
+    tower = "face_anti_spoofing_crop_l14"
+    check(reg.get(tower).conv1.weight.dtype == torch.bfloat16, "phase 25: the tower is not bf16")
+    ekyc_pipe = EKYCPipeline(registry=reg, device=dev)
+    server = serve(None, reg, port=0, ekyc_pipeline=ekyc_pipe, stream_batch_size=BATCH, max_workers=8)
+    dyn = serve(None, reg, port=0, dynamic_batching=True, batch_delay_ms=10.0, stream_batch_size=BATCH,
+                max_workers=8, triton_wire=False)
+    wc = TritonWireClient(f"localhost:{server._rsfd_port}", timeout_s=300)
+    fc = FacePipelineClient("localhost", server._rsfd_port, timeout_s=300)
+    dc = FacePipelineClient("localhost", dyn._rsfd_port, timeout_s=300)
+    trace_root = BUILD_DIR / f"trace_{os.getpid()}"
+    try:
+        pipe = server._rsfd_servicer.pipeline
+        frames = p5["frames"][: 3 * BATCH]
+        jpegs = [cv2.imencode(".jpg", f, [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes() for f in frames]
+        pair_jpegs = [tuple(cv2.imencode(".jpg", im, [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes() for im in pair)
+                      for pair in ekyc["pairs"]]
+        canvas, _ = letterbox_u8_batch(frames[:BATCH], width, height, dev)
+        x_det = np.ascontiguousarray(canvas.cpu().numpy()[..., ::-1].transpose(0, 3, 1, 2)).astype(np.float32)
+        rng = np.random.default_rng(SEED + 25)
+        x_q, x_e = (rng.normal(size=(1, 3, 112, 112)).astype(np.float32) for _ in range(2))
+        x_t = rng.normal(size=(1, 3, 224, 224)).astype(np.float32)
+
+        def dynamic(client, verb, payloads):
+            """Every payload from its own thread at once; the replies in order."""
+            out = [None] * len(payloads)
+            barrier = threading.Barrier(len(payloads))
+
+            def one(i):
+                barrier.wait()
+                out[i] = getattr(client, verb)(payloads[i])
+
+            threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            return out
+
+        def batcher_stats():
+            meta = dc.server_metadata()
+            return (meta.get("dynamic_batching_stats") or {"batches": 0, "requests": 0, "batch_size_counts": {}},
+                    meta.get("extract_dynamic_batching_stats") or {"batches": 0, "requests": 0, "batch_size_counts": {}})
+
+        # warm-up of every verb (lazy pipelines, cuDNN and cuBLAS handles), not counted
+        wc.model_infer(det_name, x_det[:1], use_raw=True)
+        wc.model_infer(tower, x_t, use_raw=True)
+        fc.extract(jpegs[0])
+        fc.detect(jpegs[0])
+        list(fc.detect_stream(jpegs[:BATCH]))
+        fc.ekyc_verify(*pair_jpegs[0])
+        dc.detect(jpegs[0])
+        dc.extract(jpegs[0])
+        torch.cuda.synchronize()
+
+        # the counted run: (a) the reference's flow over the Triton wire, (b) the facade
+        steps = {}
+        zero_counts()
+
+        def step(name):
+            torch.cuda.synchronize()
+            steps[name] = read_counts()
+
+        configs = {n: wc.model_config(n) for n in (det_name, q_name, e_name)}
+        det_inputs = configs[det_name]["input"][0]
+        out_names = [o["name"] for o in configs[det_name]["output"]]
+        check(det_inputs["dims"] == [1, 3, height, width] and len(out_names) == 9, f"phase 25: {configs[det_name]}")
+        wire = {
+            det_name: wc.model_infer(det_name, x_det[:1], input_name=det_inputs["name"], requested_outputs=out_names),
+            q_name: wc.model_infer(q_name, x_q),
+            e_name: wc.model_infer(e_name, x_e, use_raw=True),
+        }
+        step("a_stages")
+        wire[tower] = wc.model_infer(tower, x_t, use_raw=True)
+        step("a_tower")
+        extract_replies = [fc.extract(j) for j in jpegs[:BATCH]]
+        step("b_extract")
+        detect_replies = [fc.detect(j) for j in jpegs[:BATCH]]
+        step("b_detect")
+        stream_replies = list(fc.detect_stream(jpegs))
+        step("b_stream")
+        verify_replies = [fc.ekyc_verify(c, s) for c, s in pair_jpegs]
+        step("b_verify")
+        before = batcher_stats()
+        dyn_detect = dynamic(dc, "detect", jpegs[:BATCH])
+        step("b_dyn_detect")
+        dyn_extract = dynamic(dc, "extract", jpegs[BATCH : 2 * BATCH])
+        step("b_dyn_extract")
+        after = batcher_stats()
+        counts = read_counts()
+
+        names = list(steps)
+        delta = {n: {k: steps[n][k] - (steps[names[i - 1]][k] if i else 0) for k in counts}
+                 for i, n in enumerate(names)}
+        batches = [a["batches"] - b["batches"] for a, b in zip(after, before)]
+        requests = [a["requests"] - b["requests"] for a, b in zip(after, before)]
+        want_k1 = {"a_stages": 0, "a_tower": 0, "b_extract": BATCH, "b_detect": BATCH, "b_stream": 3,
+                   "b_verify": 2 * len(pair_jpegs), "b_dyn_detect": batches[0], "b_dyn_extract": batches[1]}
+        want_k4 = {"a_tower": 24, "b_verify": 48 * len(pair_jpegs)}
+        for n in names:
+            check(delta[n]["nms_mask"] == want_k1[n], f"phase 25 {n}: K1 launched {delta[n]['nms_mask']}, want {want_k1[n]}")
+            check(delta[n]["flash_attention"] == want_k4.get(n, 0), f"phase 25 {n}: K4 launched {delta[n]['flash_attention']}")
+            check(delta[n]["fused_stem"] == delta[n]["int8_matmul"] == 0, f"phase 25 {n}: K2 or K3 launched {delta[n]}")
+        check(requests == [BATCH, BATCH] and all(0 < b < BATCH for b in batches),
+              f"phase 25: dynamic batching did not coalesce: {batches} batches for {requests} requests")
+
+        # (a) each output equal to the registry module's own forward on the card
+        def direct(name, x):
+            module = reg.get(name)
+            dtype = next(module.parameters()).dtype
+            with torch.inference_mode():
+                out = module(torch.from_numpy(x).to(dev, dtype))
+            if isinstance(out, dict):
+                maps = {s: {k: v.float().cpu().numpy() for k, v in m.items()} for s, m in out.items()}
+                return detection_triton_view(maps, cfg.detection.feat_strides)
+            return [out.float().cpu().numpy()]
+
+        for name, x in ((det_name, x_det[:1]), (q_name, x_q), (e_name, x_e), (tower, x_t)):
+            got = [arr for _, _, arr in wire[name]]
+            want = direct(name, x)
+            check(len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want)),
+                  f"phase 25 (a): ModelInfer on {name} != its forward on the card")
+        check([n for n, _, _ in wire[det_name]] == out_names, "phase 25 (a): output names")
+
+        # (b) each reply equal to the direct call on the card
+        for j, reply in zip(jpegs, extract_replies):
+            check(reply == extract_reply(pipe.extract(j)), "phase 25 (b): Extract != FacePipeline.extract")
+        for j, reply in zip(jpegs, detect_replies):
+            det, kps = pipe.face_detection(decode_image_bytes(j))
+            check(reply == {"boxes": det.tolist(), "keypoints": kps.tolist()}, "phase 25 (b): Detect != direct")
+        with DetectionServer(pipe.face_detection, batch_size=BATCH) as direct_server:
+            stream_direct = [r for i in range(0, len(jpegs), BATCH) for r in direct_server.detect_batch(jpegs[i : i + BATCH])]
+            dyn_direct = direct_server.detect_batch(jpegs[:BATCH])
+        check(stream_replies == [{"boxes": d.tolist(), "keypoints": k.tolist()} for d, k in stream_direct],
+              "phase 25 (b): DetectStream != DetectionServer.detect_batch")
+        dyn_err, dyn_cos = 0.0, 1.0
+        for reply, (d, k) in zip(dyn_detect, dyn_direct):
+            got_d, got_k = np.asarray(reply["boxes"]).reshape(d.shape), np.asarray(reply["keypoints"]).reshape(k.shape)
+            if d.size:
+                dyn_err = max(dyn_err, float(np.abs(got_d - d).max()), float(np.abs(got_k - k).max()))
+        for reply, r in zip(dyn_extract, pipe.extract_batch(jpegs[BATCH : 2 * BATCH])):
+            want = extract_reply(r)
+            check(reply["face_count"] == want["face_count"] and reply["face_quality"] == want["face_quality"]
+                  and (reply["selected_face_box"] is None) == (want["selected_face_box"] is None),
+                  "phase 25 (b): dynamic Extract != extract_batch")
+            if want["selected_face_box"] is not None:
+                dyn_err = max(dyn_err, float(np.abs(np.subtract(reply["selected_face_box"], want["selected_face_box"])).max()))
+                dyn_cos = min(dyn_cos, float(np.dot(reply["facial_feature"], want["facial_feature"])))
+        check(dyn_err <= 1e-3 and dyn_cos >= 0.9999, f"phase 25 (b): dynamic batching box err {dyn_err}, cos {dyn_cos}")
+        for (c, s), reply in zip(pair_jpegs, verify_replies):
+            check(reply == ekyc_reply(ekyc_pipe.verify(c, s)), "phase 25 (b): EkycVerify != EKYCPipeline.verify")
+        faces = sum(r["face_count"] for r in extract_replies)
+        print(
+            f"phase 25 (a)+(b) serving runtime over gRPC on localhost (grpcio {grpc.__version__}): Triton wire "
+            f"3 x ModelConfig, ModelInfer on {det_name} (9 maps), {q_name}, {e_name} and the bf16 tower "
+            f"{tower}, each np.array_equal to the module's forward on the card; facade Extract x{BATCH} "
+            f"({faces} faces), Detect x{BATCH}, DetectStream x{len(jpegs)} (3 batches of {BATCH}), EkycVerify "
+            f"x{len(pair_jpegs)}: equal to the direct calls; dynamic batching, {BATCH} clients at once: Detect "
+            f"{batches[0]} batches {after[0]['batch_size_counts']}, Extract {batches[1]} batches "
+            f"{after[1]['batch_size_counts']} (cumulative), max box err {dyn_err:.3g} px, min cosine {dyn_cos:.6f}; "
+            f"launches per step {delta}"
+        )
+
+        # (c) shared memory
+        key = f"rsfd_smoke_{os.getpid()}"
+        with SharedRegion.create(key, 1 << 22) as region:
+            region.write_array(x_q)
+            wc.system_shared_memory_register("smoke", key, 1 << 22)
+            ((_, shape, ref),) = wc.model_infer_shm(q_name, x_q, "smoke", output_region=("smoke", 1 << 20),
+                                                    requested_outputs=["output"])
+            shm_out = region.read_array(np.float32, shape, 1 << 20)
+            wc.system_shared_memory_unregister("smoke")
+        check(np.array_equal(shm_out, wire[q_name][0][2]), "phase 25 (c): shared-memory ModelInfer != inline")
+        try:
+            wc.cuda_shared_memory_register("gpu", b"\0" * 64, 0, 1 << 20)
+            check(False, "phase 25 (c): CUDA shared memory was registered")
+        except grpc.RpcError as e:
+            check(e.code() == grpc.StatusCode.UNIMPLEMENTED, f"phase 25 (c): CUDA shm refused with {e.code()}")
+
+        # (d) TraceSetting around one Extract
+        check(wc.trace_setting() == {"trace_level": ["OFF"]}, "phase 25 (d): a trace is already on")
+        started = fc.trace_setting("start", trace_dir=str(trace_root))
+        fc.extract(jpegs[0])
+        stopped = fc.trace_setting("stop")
+        check(started.get("active") and stopped == {"active": False, "dir": str(trace_root)}, f"phase 25 (d): {stopped}")
+        trace_file = trace_root / "trace.json"
+        trace_text = trace_file.read_text()
+        check("nms_mask_kernel" in trace_text, "phase 25 (d): K1's kernel is not in the trace")
+        print(f"phase 25 (c) shared-memory ModelInfer on {q_name} equal to the inline one; CUDA shared memory "
+              f"refused UNIMPLEMENTED; (d) TraceSetting start/stop around one Extract: {trace_file.stat().st_size} "
+              f"bytes of Chrome trace, K1's nms_mask_kernel in it")
+
+        # (e) timings, TF32 off: host clock for round trips, CUDA events for the forward alone
+        module = reg.get(det_name)
+        x1, x8 = (torch.from_numpy(x_det[:b]).to(dev) for b in (1, BATCH))
+        with torch.inference_mode():
+            fwd = {b: cuda_ms(lambda x=x: module(x), 10) for b, x in ((1, x1), (BATCH, x8))}
+        rt = {b: host_ms(lambda b=b: wc.model_infer(det_name, x_det[:b], use_raw=True), 10 if b == 1 else 3)
+              for b in (1, BATCH)}
+        ext_wire = host_ms(lambda: [fc.extract(j) for j in jpegs[:BATCH]], 1)
+        ext_direct = host_ms(lambda: [pipe.extract(j) for j in jpegs[:BATCH]], 1)
+        ver_wire = host_ms(lambda: [fc.ekyc_verify(c, s) for c, s in pair_jpegs], 1)
+        ver_direct = host_ms(lambda: [ekyc_pipe.verify(c, s) for c, s in pair_jpegs], 1)
+        dyn_rates, sizes0 = [], batcher_stats()[0]["batch_size_counts"]
+        for _ in range(5):
+            t0 = time.perf_counter()
+            dynamic(dc, "detect", jpegs[:BATCH] * 4)
+            dyn_rates.append(4 * BATCH / (time.perf_counter() - t0))
+        sizes1 = batcher_stats()[0]["batch_size_counts"]
+        coalesced = {k: v - sizes0.get(k, 0) for k, v in sizes1.items() if v - sizes0.get(k, 0)}
+        dyn_rates.sort()
+        per = lambda t, n: (t[0] / n, t[1] / n, t[2] / n)  # noqa: E731
+        print(f"phase 25 (e) ModelInfer round trip {det_name} raw fp32 b1: {fmt(rt[1])}, b{BATCH}: {fmt(rt[BATCH])}; "
+              f"the forward alone on the device b1 {fmt(fwd[1])}, b{BATCH} {fmt(fwd[BATCH])} {card}")
+        print(f"phase 25 (e) Extract per 640x480 JPEG over the wire {fmt(per(ext_wire, BATCH))}, "
+              f"FacePipeline.extract direct {fmt(per(ext_direct, BATCH))} {card}")
+        print(f"phase 25 (e) EkycVerify per pair over the wire {fmt(per(ver_wire, len(pair_jpegs)))}, "
+              f"EKYCPipeline.verify direct {fmt(per(ver_direct, len(pair_jpegs)))} {card}")
+        print(f"phase 25 (e) Detect with dynamic batching, {BATCH} clients x 4 requests, 5 windows: "
+              f"{dyn_rates[2]:.1f} img/s (min {dyn_rates[0]:.1f}, max {dyn_rates[-1]:.1f}); batch sizes {coalesced} {card}")
+    finally:
+        for c in (wc, fc, dc):
+            c.close()
+        server.stop(0)
+        dyn.stop(0)
+        shutil.rmtree(trace_root, ignore_errors=True)
+    print(f"phase 25 serving runtime: {time.perf_counter() - t_phase:.1f} s in all {card}")
+    return {"serving": counts}
+
+
 def gpu_tests_phase(card):
     """Phase 21: the kernels' own card tests in a subprocess, without
     tests/conftest.py (it imports JAX).  Passes only if pytest exits 0,
@@ -2499,6 +2813,7 @@ def main() -> int:
     # not change when an earlier phase draws more or less.
     by_path.update(offline_phase(dev, np.random.default_rng(SEED + 23), face, card, det_sd))
     by_path.update(int8_detect_phase(dev, np.random.default_rng(SEED + 24), face, card, det_sd))
+    by_path.update(serving_phase(dev, card, dict(p5, q_sd=q_sd, e_sd=e_sd, frames=frames), ekyc))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")

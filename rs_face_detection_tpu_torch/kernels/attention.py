@@ -11,14 +11,24 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Tuple
 
 import torch
 
 from . import build
 
-#: Kernel launches made by this process (the main path's proof of use).
+#: Kernel launches made by this process (the main path's proof of use),
+#: bumped under _launch_lock: serving threads launch concurrently.
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def count_launch() -> None:
+    """Add one to ``launches``: called where the kernel launched, and nowhere else."""
+    global launches
+    with _launch_lock:
+        launches += 1
 
 #: Head dims the kernel is instantiated for.
 HEAD_DIMS = (32, 64)
@@ -68,28 +78,29 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("attention")
+def _setup(lib: ctypes.CDLL) -> None:
     fn = lib.rsfd_flash_attention
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p,  # q
-            ctypes.c_void_p,  # k
-            ctypes.c_void_p,  # v
-            ctypes.c_void_p,  # o
-            ctypes.c_int,  # B
-            ctypes.c_int,  # N
-            ctypes.c_int,  # H
-            ctypes.c_int,  # D
-            ctypes.c_int,  # dtype
-            *([ctypes.c_longlong] * 9),  # q, k, v strides of B, N, H
-            ctypes.c_int,  # splits
-            ctypes.c_int,  # warps
-            ctypes.c_int,  # stages
-            ctypes.c_void_p,  # stream
-        ]
-    return lib
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # q
+        ctypes.c_void_p,  # k
+        ctypes.c_void_p,  # v
+        ctypes.c_void_p,  # o
+        ctypes.c_int,  # B
+        ctypes.c_int,  # N
+        ctypes.c_int,  # H
+        ctypes.c_int,  # D
+        ctypes.c_int,  # dtype
+        *([ctypes.c_longlong] * 9),  # q, k, v strides of B, N, H
+        ctypes.c_int,  # splits
+        ctypes.c_int,  # warps
+        ctypes.c_int,  # stages
+        ctypes.c_void_p,  # stream
+    ]
+
+
+def _lib() -> ctypes.CDLL:
+    return build.load("attention", _setup)
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -101,7 +112,6 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
     Returns a contiguous (B, N, H, D) tensor in the inputs' dtype.  Launches
     once on the current stream and does not synchronise.
     """
-    global launches
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda needs CUDA tensors, got {q.device}")
     for name, t in (("k", k), ("v", v)):
@@ -151,5 +161,5 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> t
         )
     if err != 0:
         raise RuntimeError(f"rsfd_flash_attention failed to launch: cudaError {err}")
-    launches += 1
+    count_launch()
     return out

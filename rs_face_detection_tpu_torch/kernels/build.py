@@ -21,7 +21,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Callable, Dict, Optional, Set
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -37,6 +37,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: Libraries whose wrapper's setup has run.
+_set_up: Set[str] = set()
 #: nvcc's output (ptxas register and shared-memory report) per library.
 build_logs: Dict[str, str] = {}
 
@@ -92,11 +94,18 @@ def build(name: str) -> Path:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load csrc/<name>.cu; memoized per process."""
+def load(name: str, setup: Optional[Callable[[ctypes.CDLL], None]] = None) -> ctypes.CDLL:
+    """Build (if needed) and load csrc/<name>.cu; memoized per process.
+
+    ``setup`` (the wrapper's argtypes and restypes) runs once, under the
+    lock, before any caller gets the library: concurrent first calls from
+    serving threads never see a function without its signature."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
             _libs[name] = lib
+        if setup is not None and name not in _set_up:
+            setup(lib)
+            _set_up.add(name)
         return lib

@@ -19,8 +19,17 @@ import torch
 from ..ops.quantize import check_int8_operands
 from . import build
 
-#: Kernel launches made by this process (the main path's proof of use).
+#: Kernel launches made by this process (the main path's proof of use),
+#: bumped under _launch_lock: serving threads launch concurrently.
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def count_launch() -> None:
+    """Add one to ``launches``: called where the kernel launched, and nowhere else."""
+    global launches
+    with _launch_lock:
+        launches += 1
 
 #: Rows per k-step (one mma), columns per CTA, rows per K chunk at most, x
 #: rows per CTA at M > 1, CTAs per thread-block cluster at most, counter
@@ -74,30 +83,31 @@ def smem_bytes(m: int, rows: int, compute: str) -> int:
     return RING_BYTES + block_m * (rows | 16) * 4 + (rows // KSTEP) * b_tiles * 256 + block_m * BLOCK_N * 4
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("int8_matmul")
+def _setup(lib: ctypes.CDLL) -> None:
     fn = lib.rsfd_int8_matmul
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p,  # x
-            ctypes.c_void_p,  # q
-            ctypes.c_void_p,  # scale
-            ctypes.c_void_p,  # out
-            ctypes.c_void_p,  # the clusters' partial tiles
-            ctypes.c_int,  # M
-            ctypes.c_int,  # K
-            ctypes.c_int,  # N
-            ctypes.c_int,  # rows per K chunk
-            ctypes.c_int,  # chunks
-            ctypes.c_int,  # cluster size
-            ctypes.c_int,  # counter slot
-            ctypes.c_int,  # bf16
-            ctypes.c_void_p,  # stream
-        ]
-        lib.rsfd_int8_matmul_max_clusters.restype = ctypes.c_int
-        lib.rsfd_int8_matmul_max_clusters.argtypes = [ctypes.c_int]
-    return lib
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # x
+        ctypes.c_void_p,  # q
+        ctypes.c_void_p,  # scale
+        ctypes.c_void_p,  # out
+        ctypes.c_void_p,  # the clusters' partial tiles
+        ctypes.c_int,  # M
+        ctypes.c_int,  # K
+        ctypes.c_int,  # N
+        ctypes.c_int,  # rows per K chunk
+        ctypes.c_int,  # chunks
+        ctypes.c_int,  # cluster size
+        ctypes.c_int,  # counter slot
+        ctypes.c_int,  # bf16
+        ctypes.c_void_p,  # stream
+    ]
+    lib.rsfd_int8_matmul_max_clusters.restype = ctypes.c_int
+    lib.rsfd_int8_matmul_max_clusters.argtypes = [ctypes.c_int]
+
+
+def _lib() -> ctypes.CDLL:
+    return build.load("int8_matmul", _setup)
 
 
 @functools.lru_cache(maxsize=None)
@@ -141,7 +151,6 @@ def int8_matmul_cuda(
     Launches one kernel on the current stream and does not synchronise; safe
     under CUDA-graph capture.
     """
-    global launches
     n = check_int8_operands(x, q, scale, compute)
     m, k = x.shape
     for name, t in (("x", x), ("q", q), ("scale", scale)):
@@ -176,5 +185,5 @@ def int8_matmul_cuda(
         )
     if err != 0:
         raise RuntimeError(f"rsfd_int8_matmul failed to launch: cudaError {err}")
-    launches += 1
+    count_launch()
     return out

@@ -10,32 +10,43 @@ on anything the kernel does not take.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from . import build
 
-#: Kernel launches made by this process (the main path's proof of use).
+#: Kernel launches made by this process (the main path's proof of use),
+#: bumped under _launch_lock: serving threads launch concurrently.
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def count_launch() -> None:
+    """Add one to ``launches``: called where the kernel launched, and nowhere else."""
+    global launches
+    with _launch_lock:
+        launches += 1
+
+
+def _setup(lib: ctypes.CDLL) -> None:
+    fn = lib.rsfd_nms_mask
+    lib.rsfd_nms_max_k.restype = ctypes.c_int
+    lib.rsfd_nms_max_k.argtypes = []
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # boxes
+        ctypes.c_void_p,  # valid
+        ctypes.c_void_p,  # keep
+        ctypes.c_int,  # B
+        ctypes.c_int,  # K
+        ctypes.c_float,  # thr
+        ctypes.c_void_p,  # stream
+    ]
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("nms")
-    fn = lib.rsfd_nms_mask
-    if fn.argtypes is None:
-        lib.rsfd_nms_max_k.restype = ctypes.c_int
-        lib.rsfd_nms_max_k.argtypes = []
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p,  # boxes
-            ctypes.c_void_p,  # valid
-            ctypes.c_void_p,  # keep
-            ctypes.c_int,  # B
-            ctypes.c_int,  # K
-            ctypes.c_float,  # thr
-            ctypes.c_void_p,  # stream
-        ]
-    return lib
+    return build.load("nms", _setup)
 
 
 def nms_mask_cuda(
@@ -47,7 +58,6 @@ def nms_mask_cuda(
     the same device (nonzero = valid).  Launches once for the whole batch on
     the current stream and does not synchronise.
     """
-    global launches
     if boxes.device.type != "cuda":
         raise ValueError(f"nms_mask_cuda needs CUDA tensors, got {boxes.device}")
     if valid.device != boxes.device:
@@ -84,5 +94,5 @@ def nms_mask_cuda(
         )
     if err != 0:
         raise RuntimeError(f"rsfd_nms_mask failed to launch: cudaError {err}")
-    launches += 1
+    count_launch()
     return keep

@@ -11,33 +11,44 @@ raises on anything the kernel does not take.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from ..ops.stem import STEM_CHANNELS, stem_output_hw
 from . import build
 
-#: Kernel launches made by this process (the main path's proof of use).
+#: Kernel launches made by this process (the main path's proof of use),
+#: bumped under _launch_lock: serving threads launch concurrently.
 launches = 0
+_launch_lock = threading.Lock()
+
+
+def count_launch() -> None:
+    """Add one to ``launches``: called where the kernel launched, and nowhere else."""
+    global launches
+    with _launch_lock:
+        launches += 1
+
+
+def _setup(lib: ctypes.CDLL) -> None:
+    fn = lib.rsfd_fused_stem
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.c_void_p,  # canvas
+        ctypes.c_void_p,  # w192
+        ctypes.c_void_p,  # bn2
+        ctypes.c_void_p,  # norm2
+        ctypes.c_void_p,  # out
+        ctypes.c_int,  # B
+        ctypes.c_int,  # H
+        ctypes.c_int,  # W
+        ctypes.c_void_p,  # stream
+    ]
 
 
 def _lib() -> ctypes.CDLL:
-    lib = build.load("stem")
-    fn = lib.rsfd_fused_stem
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p,  # canvas
-            ctypes.c_void_p,  # w192
-            ctypes.c_void_p,  # bn2
-            ctypes.c_void_p,  # norm2
-            ctypes.c_void_p,  # out
-            ctypes.c_int,  # B
-            ctypes.c_int,  # H
-            ctypes.c_int,  # W
-            ctypes.c_void_p,  # stream
-        ]
-    return lib
+    return build.load("stem", _setup)
 
 
 def _check_const(name: str, t: torch.Tensor, shape, device: torch.device) -> None:
@@ -60,7 +71,6 @@ def fused_stem_cuda(
     constants of ops.stem.fold_stem_params on the same device.  Launches once
     for the whole batch on the current stream and does not synchronise.
     """
-    global launches
     if canvas.device.type != "cuda":
         raise ValueError(f"fused_stem_cuda needs CUDA tensors, got {canvas.device}")
     if canvas.dtype != torch.uint8:
@@ -95,5 +105,5 @@ def fused_stem_cuda(
         )
     if err != 0:
         raise RuntimeError(f"rsfd_fused_stem failed to launch: cudaError {err}")
-    launches += 1
+    count_launch()
     return out

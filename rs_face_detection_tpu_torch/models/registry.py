@@ -17,6 +17,9 @@ and the same statistics (the analogs of a model repository's
 A builder returns (spec, module); the registry puts the module in eval mode
 on its device (the card unless given), and a pipeline serves that module
 itself, so a pipeline runs on its registry's device or refuses the registry.
+An entry that is not an ``nn.Module`` (a model repository's ensemble,
+runtime/repository.py::EnsembleDefinition) is held as it is, as the JAX
+registry holds any object; it has no weights, so its memory usage is 0.
 
 ``default_registry(device)`` is one registry per process and device with a
 builder for every ``model_name`` of configs.py, each as the JAX package's:
@@ -77,7 +80,7 @@ class ModelStats:
 @dataclass
 class _Entry:
     spec: ModelSpec
-    module: nn.Module
+    module: Any  # an nn.Module, or an object without weights (an ensemble)
     stats: ModelStats = field(default_factory=ModelStats)
 
 
@@ -111,15 +114,20 @@ class ModelRegistry:
         spec, module = builder()
         if spec.name != name:
             raise ValueError(f"builder registered as {name!r} returned spec.name={spec.name!r}")
-        module = module.to(self.device).eval()
+        module = self._placed(module)
         with self._lock:
             if name not in self._models:
                 self._models[name] = _Entry(spec, module)
 
-    def register(self, spec: ModelSpec, module: nn.Module) -> None:
-        module = module.to(self.device).eval()
+    def register(self, spec: ModelSpec, module: Any) -> None:
+        module = self._placed(module)
         with self._lock:
             self._models[spec.name] = _Entry(spec, module)
+
+    def _placed(self, module: Any) -> Any:
+        """An ``nn.Module`` in eval mode on the registry's device; any other
+        object as it is."""
+        return module.to(self.device).eval() if isinstance(module, nn.Module) else module
 
     def unload(self, name: str) -> None:
         with self._lock:
@@ -151,18 +159,22 @@ class ModelRegistry:
     def spec(self, name: str) -> ModelSpec:
         return self._entry(name).spec
 
-    def get(self, name: str) -> nn.Module:
+    def get(self, name: str) -> Any:
         """The module, loading it on first use."""
         return self._entry(name).module
 
     def variables(self, name: str) -> Dict[str, torch.Tensor]:
-        return self._entry(name).module.state_dict()
+        module = self._entry(name).module
+        return module.state_dict() if isinstance(module, nn.Module) else {}
 
     def memory_usage_bytes(self, name: str) -> int:
         """Bytes of the module's parameters and buffers, each tensor once;
         BatchNorm's ``num_batches_tracked`` counters are left out, as the
-        JAX variables have no such leaf."""
+        JAX variables have no such leaf.  An entry without weights (an
+        ensemble) answers 0."""
         module = self._entry(name).module
+        if not isinstance(module, nn.Module):
+            return 0
         tensors = dict(module.named_parameters())
         tensors.update((k, b) for k, b in module.named_buffers() if not k.endswith("num_batches_tracked"))
         seen = {id(t): t.numel() * t.element_size() for t in tensors.values()}

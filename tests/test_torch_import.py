@@ -1,6 +1,6 @@
 """The port never imports JAX, nor any module of the JAX package: every
-module loads in a process without them, and so does the file of the
-kernels' card tests.  Its entry points run on the card unless asked for the
+module loads in a process without them (and without ml_dtypes, and the
+package without grpc), and so does the file of the kernels' card tests.  Its entry points run on the card unless asked for the
 CPU."""
 
 import json
@@ -46,9 +46,42 @@ def test_port_imports_without_jax():
         "models.checkpoint_maps", "models.clip_import", "models.scrfd_import", "models.checkpoint_io",
         "ops.matching", "ops.eval", "ops.wider", "ops.wider_split", "pipeline.tracking",
         "pipeline.multiscale", "pipeline.tta", "utils.synthetic", "utils.fixtures", "tools.eval_wider",
-        "ops.int8_conv", "runtime.native",
+        "ops.int8_conv", "runtime.native", "runtime.proto3", "runtime.shm", "runtime.batcher",
+        "runtime.repository", "runtime.wire", "runtime.server",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]
+
+
+#: Import every module of the package with some top-level packages made
+#: unimportable (a None entry in sys.modules raises ImportError).
+_BLOCKED_PROBE = """
+import importlib, json, pkgutil, sys
+for name in sys.argv[1:]:
+    sys.modules[name] = None
+import rs_face_detection_tpu_torch as pkg
+from rs_face_detection_tpu_torch.runtime import server, wire
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names, "grpc": server._HAS_GRPC}))
+"""
+
+
+@pytest.mark.parametrize("blocked", [("jax", "flax", "ml_dtypes"), ("grpc",)], ids=["no-jax", "no-grpc"])
+def test_package_imports_with_modules_blocked(blocked):
+    """The serving runtime imports with JAX, flax and ml_dtypes unimportable,
+    and the whole package imports without grpc (grpc is needed at ``serve``
+    and by the clients, not at import)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_PROBE, *blocked], capture_output=True, text=True, env=env, cwd=REPO,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    for name in ("proto3", "shm", "batcher", "repository", "wire", "server"):
+        assert f"rs_face_detection_tpu_torch.runtime.{name}" in report["modules"]
+    assert report["grpc"] is (blocked != ("grpc",))
 
 
 #: Collect the card tests as the card's machine runs them: no JAX, no flax,
