@@ -2,7 +2,8 @@
 """Drive the PyTorch port's main paths once on a CUDA card: face-ID, eKYC, the
 weight-only int8 FaceExtraction, checkpoint serving through the registry,
 offline evaluation and video (multi-scale, TTA, tracking, AP), the
-calibrated int8-activation detector, and the gRPC serving runtime.
+calibrated int8-activation detector, the gRPC serving runtime, and the
+deployment surfaces (REST, the runtime's entry point, AOT artifacts).
 
 Run from the root of a checkout, with one card:
 
@@ -186,12 +187,35 @@ and the last line is never printed):
      kernel; (e) round trips against the direct calls: ModelInfer b1 and
      b8 raw fp32 (host clock) against the forward alone (CUDA events),
      Extract, EkycVerify, and dynamic-batching Detect in img/s;
+ 26. the deployment surfaces: (a) the KServe-v2 REST endpoint
+     (runtime/http.py, ``serve(http_port=0)``) over phase 25's registry: a
+     JSON and a binary-extension infer on the detector and on the bf16
+     tower (24 K4 each), each np.array_equal to the module's forward and to
+     the wire's ModelInfer; health, metadata, statistics and the CUDA
+     shared-memory refusal; a b8 REST infer timed against the forward; (b)
+     ``python -m rs_face_detection_tpu_torch.runtime --port 0 --http-port 0
+     --warmup --checkpoint-dir <dir>`` as a child process with phase 5's
+     trained detector in the directory: both surfaces live and ready, one
+     Extract over gRPC against phase 5's pipeline on the same JPEG (under
+     the child's TF32 defaults), exit code 0 on SIGTERM; (c) AOT artifacts
+     (runtime/aot.py, torch.export) of the trained 640 mnet and the seeded
+     R50 (fused stem) at b8, loaded and torch.equal to detect_batch on phase
+     5's canvases, and an mnet exported on the CPU and moved to the card
+     (counts equal, boxes within 1e-3 px); (d) model artifacts of the bf16
+     tower and the int8 face-ID head, each torch.equal to its eager forward;
+     one counted call of each loaded program (K1 3, K2 1, K4 24, K3 1);
+     artifact bytes against weight bytes, export and load seconds, loaded
+     against eager detect b8 (CUDA events); then each kernel's custom op
+     against its direct ctypes wrapper from Python, in turns (the kernels
+     line's ``python_ms`` and ``wrapper_python_ms``);
 then a JSON line of the kernels, with each one's bound on the card, its
-time on the device as ``ms`` and from Python as ``python_ms``, and
+time on the device as ``ms`` and from Python as ``python_ms`` (through
+its custom op; ``wrapper_python_ms`` through the wrapper alone), and
 {"ok": true, "device": ...} last.
 Every count a phase checks is set to 0 just before its path runs.  The
 main paths (phases 5, 9, 15, 18, each counted run of 22, (a)-(c) of 23,
-(a)-(c) of 24 and (a)+(b) of 25)
+(a)-(c) of 24, (a)+(b) of 25, (a) of 26 and the
+loaded programs' calls of 26)
 set all four kernels' counts to 0 and read all four after, and the kernels
 line reports exactly those reads.
 
@@ -2072,36 +2096,20 @@ def host_ms(fn, n, windows=5):
     return statistics.median(per_call), min(per_call), max(per_call)
 
 
-def serving_phase(dev, card, p5, ekyc):
-    """Phase 25: the serving runtime on the card.  One registry on the card
-    with phase 5's trained 640 mnet and seeded heads and phase 15's eKYC
-    models (bf16 towers), served by runtime/server.py::serve on a localhost
-    port with the Triton wire beside the facade; a second server with
-    dynamic batching on the same registry.  The counted run is every request
-    of (a) and (b); each reply is then held against the direct call on the
-    card.  (c) shared memory, (d) TraceSetting, (e) timings.  TF32 off.
-    Returns the counted run's launch counts."""
-    import shutil
-    import threading
+#: The eKYC tower that phases 25 and 26 serve (a bf16 clip_l14).
+TOWER = "face_anti_spoofing_crop_l14"
 
-    import cv2
-    import grpc
-    import numpy as np
+
+def serving_registry(dev, p5, ekyc):
+    """The registry of phases 25 and 26, on the card: phase 5's trained 640
+    mnet and seeded heads and phase 15's eKYC models, the clip_l14 towers
+    cast to bf16 for serving."""
     import torch
 
-    from rs_face_detection_tpu_torch.kernels.build import BUILD_DIR
     from rs_face_detection_tpu_torch.models import weights
     from rs_face_detection_tpu_torch.models.registry import DETECTION_OUTPUT_SPEC, EKYC_FAMILIES, ModelRegistry, ModelSpec
     from rs_face_detection_tpu_torch.models.vit import cast_for_serving
-    from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch
-    from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import EKYCPipeline
-    from rs_face_detection_tpu_torch.runtime.server import FacePipelineClient, ekyc_reply, extract_reply, serve
-    from rs_face_detection_tpu_torch.runtime.shm import SharedRegion
-    from rs_face_detection_tpu_torch.runtime.wire import TritonWireClient, detection_triton_view
-    from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
-    from rs_face_detection_tpu_torch.utils.image_io import decode_image_bytes
 
-    t_phase = time.perf_counter()
     cfg = p5["cfg"]
     det_name, q_name, e_name = cfg.detection.model_name, cfg.quality.model_name, cfg.identification.model_name
     width, height = cfg.detection.image_size
@@ -2119,8 +2127,58 @@ def serving_phase(dev, card, p5, ekyc):
             cast_for_serving(model)
         size = sizes.get(name, 224)
         reg.register(ModelSpec(name, (size, size, 3), "seeded"), model)
-    tower = "face_anti_spoofing_crop_l14"
-    check(reg.get(tower).conv1.weight.dtype == torch.bfloat16, "phase 25: the tower is not bf16")
+    check(reg.get(TOWER).conv1.weight.dtype == torch.bfloat16, "phases 25-26: the tower is not bf16")
+    return reg
+
+
+def direct_forward(dev, reg, cfg, name, x):
+    """The registry module's own forward on the card, as the wire returns
+    it: a list of float32 arrays (the detector's 9 maps in the Triton
+    view)."""
+    import torch
+
+    from rs_face_detection_tpu_torch.runtime.wire import detection_triton_view
+
+    module = reg.get(name)
+    dtype = next(module.parameters()).dtype
+    with torch.inference_mode():
+        out = module(torch.from_numpy(x).to(dev, dtype))
+    if isinstance(out, dict):
+        maps = {s: {k: v.float().cpu().numpy() for k, v in m.items()} for s, m in out.items()}
+        return detection_triton_view(maps, cfg.detection.feat_strides)
+    return [out.float().cpu().numpy()]
+
+
+def serving_phase(dev, card, p5, ekyc, reg):
+    """Phase 25: the serving runtime on the card.  ``reg``
+    (serving_registry) served by runtime/server.py::serve on a localhost
+    port with the Triton wire beside the facade; a second server with
+    dynamic batching on the same registry.  The counted run is every request
+    of (a) and (b); each reply is then held against the direct call on the
+    card.  (c) shared memory, (d) TraceSetting, (e) timings.  TF32 off.
+    Returns the counted run's launch counts."""
+    import shutil
+    import threading
+
+    import cv2
+    import grpc
+    import numpy as np
+    import torch
+
+    from rs_face_detection_tpu_torch.kernels.build import BUILD_DIR
+    from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch
+    from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import EKYCPipeline
+    from rs_face_detection_tpu_torch.runtime.server import FacePipelineClient, ekyc_reply, extract_reply, serve
+    from rs_face_detection_tpu_torch.runtime.shm import SharedRegion
+    from rs_face_detection_tpu_torch.runtime.wire import TritonWireClient
+    from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
+    from rs_face_detection_tpu_torch.utils.image_io import decode_image_bytes
+
+    t_phase = time.perf_counter()
+    cfg = p5["cfg"]
+    det_name, q_name, e_name = cfg.detection.model_name, cfg.quality.model_name, cfg.identification.model_name
+    width, height = cfg.detection.image_size
+    tower = TOWER
     ekyc_pipe = EKYCPipeline(registry=reg, device=dev)
     server = serve(None, reg, port=0, ekyc_pipeline=ekyc_pipe, stream_batch_size=BATCH, max_workers=8)
     dyn = serve(None, reg, port=0, dynamic_batching=True, batch_delay_ms=10.0, stream_batch_size=BATCH,
@@ -2225,19 +2283,9 @@ def serving_phase(dev, card, p5, ekyc):
               f"phase 25: dynamic batching did not coalesce: {batches} batches for {requests} requests")
 
         # (a) each output equal to the registry module's own forward on the card
-        def direct(name, x):
-            module = reg.get(name)
-            dtype = next(module.parameters()).dtype
-            with torch.inference_mode():
-                out = module(torch.from_numpy(x).to(dev, dtype))
-            if isinstance(out, dict):
-                maps = {s: {k: v.float().cpu().numpy() for k, v in m.items()} for s, m in out.items()}
-                return detection_triton_view(maps, cfg.detection.feat_strides)
-            return [out.float().cpu().numpy()]
-
         for name, x in ((det_name, x_det[:1]), (q_name, x_q), (e_name, x_e), (tower, x_t)):
             got = [arr for _, _, arr in wire[name]]
-            want = direct(name, x)
+            want = direct_forward(dev, reg, cfg, name, x)
             check(len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want)),
                   f"phase 25 (a): ModelInfer on {name} != its forward on the card")
         check([n for n, _, _ in wire[det_name]] == out_names, "phase 25 (a): output names")
@@ -2346,6 +2394,289 @@ def serving_phase(dev, card, p5, ekyc):
         shutil.rmtree(trace_root, ignore_errors=True)
     print(f"phase 25 serving runtime: {time.perf_counter() - t_phase:.1f} s in all {card}")
     return {"serving": counts}
+
+
+def read_lines(proc, pattern, timeout_s):
+    """Lines of a child's stdout, read on a thread of their own: ((the first
+    match of ``pattern``, the host clock when its line was read), the lines
+    so far), or (None, lines) when the child exits or ``timeout_s`` passes
+    first."""
+    import queue
+    import re
+    import threading
+
+    lines, found = [], queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line)
+            m = re.search(pattern, line)
+            if m:
+                found.put((m, time.perf_counter()))
+        found.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        return found.get(timeout=timeout_s), lines
+    except queue.Empty:
+        return None, lines
+
+
+def deployment_phase(dev, card, reg, p26):
+    """Phase 26: the deployment surfaces on the card.  (a) the KServe-v2
+    REST endpoint over phase 25's registry; (b) the runtime's entry point as
+    a child process; (c) AOT detect artifacts of the trained 640 mnet and
+    the seeded R50, and an mnet exported on the CPU served on the card; (d)
+    model artifacts of the bf16 tower and the int8 face-ID head; then each
+    custom op against its direct wrapper from Python.  TF32 off but in (b).
+    The child of (b) starts first and comes up while (c)+(d) export; every
+    timing is taken after it has stopped.
+    Returns the counted runs' launches (``http``: the REST infers; ``aot``:
+    one call of each loaded program) and the custom ops' host times."""
+    import shutil
+    import signal
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from rs_face_detection_tpu_torch.kernels import attention as katt
+    from rs_face_detection_tpu_torch.kernels import build
+    from rs_face_detection_tpu_torch.kernels import int8_matmul as k3
+    from rs_face_detection_tpu_torch.kernels import nms as knms
+    from rs_face_detection_tpu_torch.kernels import stem as kstem
+    from rs_face_detection_tpu_torch.models import checkpoint_io, weights
+    from rs_face_detection_tpu_torch.models.quantized import quantize_module
+    from rs_face_detection_tpu_torch.ops.attention import attention
+    from rs_face_detection_tpu_torch.ops.nms import nms_mask
+    from rs_face_detection_tpu_torch.ops.quantize import int8_matmul
+    from rs_face_detection_tpu_torch.ops.stem import fused_stem
+    from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
+    from rs_face_detection_tpu_torch.runtime.aot import export_detector, export_model, load_detector, load_model
+    from rs_face_detection_tpu_torch.runtime.http import TritonHTTPClient, _HttpContext
+    from rs_face_detection_tpu_torch.runtime.server import FacePipelineClient, extract_reply, serve
+    from rs_face_detection_tpu_torch.runtime.wire import TritonWireClient
+
+    t_phase = time.perf_counter()
+    cfg = p26["cfg"]
+    det_name = cfg.detection.model_name
+    rng = np.random.default_rng(SEED + 26)
+    canvas = p26["canvas"]
+    x_det = np.ascontiguousarray(canvas.cpu().numpy()[..., ::-1].transpose(0, 3, 1, 2)).astype(np.float32)
+    x_t = rng.normal(size=(1, 3, 224, 224)).astype(np.float32)
+
+    # (b) the runtime's entry point as a child process, on phase 5's trained detector; it
+    # starts now and is asked after (c)+(d) have exported and loaded their artifacts
+    root = tempfile.mkdtemp(prefix="runtime-", dir=build.BUILD_DIR)
+    det_meta = {"family": "retinaface", "backbone": "mobilenet025", "stem_s2d": False, "image_size": [640, 640]}
+    checkpoint_io.save_imported(os.path.join(root, f"{det_name}.npz"),
+                                weights.load_model("retinaface_mobilenet025", p26["det_sd"]), det_meta)
+    jpeg = cv2.imencode(".jpg", p26["frames"][0], [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes()
+    t_child = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rs_face_detection_tpu_torch.runtime", "--port", "0", "--http-port", "0",
+         "--warmup", "--checkpoint-dir", root],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    try:
+        # (c) + (d): artifacts, eager references first, then one counted call of each loaded program
+        rcfg = dataclasses.replace(cfg.detection, backbone="resnet50")
+        detectors = {
+            "mnet": RetinaFaceDetection(cfg.detection, reg.get(det_name), device=dev),
+            "r50": RetinaFaceDetection(rcfg, weights.load_model("retinaface_resnet50", p26["r50_sd"]), device=dev),
+            "mnet_cpu": RetinaFaceDetection(cfg.detection, weights.load_model("retinaface_mobilenet025", p26["det_sd"]),
+                                            device="cpu"),
+        }
+        tower = reg.get(TOWER)
+        head = quantize_module(weights.load_model(cfg.identification.backbone, p26["e_sd"])).to(dev).eval()
+        x_tower = torch.from_numpy(rng.normal(size=(BATCH, 3, 224, 224)).astype(np.float32)).to(dev, torch.bfloat16)
+        x_face = torch.from_numpy(rng.normal(size=(BATCH, 3, 112, 112)).astype(np.float32)).to(dev)
+        exports = {
+            "mnet": lambda: export_detector(detectors["mnet"], batch_size=BATCH),
+            "r50": lambda: export_detector(detectors["r50"], batch_size=BATCH),
+            "mnet_cpu": lambda: export_detector(detectors["mnet_cpu"], batch_size=BATCH),
+            "tower": lambda: export_model(tower, (BATCH, 3, 224, 224), name=TOWER, dtype=torch.bfloat16),
+            "int8_head": lambda: export_model(head, (BATCH, 3, 112, 112), name=cfg.identification.model_name),
+        }
+        blobs, loaded, secs = {}, {}, {}
+        for key, export in exports.items():
+            t0 = time.perf_counter()
+            blobs[key] = export()
+            t1 = time.perf_counter()
+            loaded[key] = (load_model if key in ("tower", "int8_head") else load_detector)(blobs[key], device=dev)
+            secs[key] = (t1 - t0, time.perf_counter() - t1)
+        check(loaded["mnet_cpu"].meta["device"] == "cpu" and loaded["mnet_cpu"].device == loaded["mnet"].device,
+              "phase 26 (c): the CPU artifact was not moved to the card")
+        check(loaded["r50"].meta["stem"] == "fused", f"phase 26 (c): the R50 exported the {loaded['r50'].meta['stem']} stem")
+        states = {key: (det.model if key != "mnet_cpu" else detectors["mnet"].model).state_dict()
+                  for key, det in detectors.items()}
+        states.update(tower=tower.state_dict(), int8_head=head.state_dict())
+        scales = torch.ones(BATCH, device=dev)
+        inputs = {key: (canvas, scales) for key in detectors}
+        inputs.update(tower=(x_tower,), int8_head=(x_face,))
+        with torch.inference_mode():
+            live = {key: detectors[key if key != "mnet_cpu" else "mnet"].detect_batch(canvas, scales) for key in detectors}
+            live = {key: (v.det, v.kps, v.count) for key, v in live.items()}
+            live.update(tower=tower(x_tower), int8_head=head(x_face))
+        for key in loaded:  # warm-up of each program, not counted
+            loaded[key](states[key], *inputs[key])
+        torch.cuda.synchronize()
+        zero_counts()
+        outs = {key: loaded[key](states[key], *inputs[key]) for key in loaded}
+        torch.cuda.synchronize()
+        aot_counts = read_counts()
+        want_counts = {"nms_mask": 3, "fused_stem": 1, "flash_attention": 24, "int8_matmul": 1}
+        check(aot_counts == want_counts, f"phase 26 (c)+(d): loaded programs launched {aot_counts}, want {want_counts}")
+        for key in ("mnet", "r50"):
+            check(all(torch.equal(g, w) for g, w in zip(outs[key], live[key])), f"phase 26 (c): loaded {key} != detect_batch")
+        for key in ("tower", "int8_head"):
+            check(torch.equal(outs[key], live[key]), f"phase 26 (d): loaded {key} != its eager forward")
+        moved, ref = outs["mnet_cpu"], live["mnet"]
+        check(torch.equal(moved[2], ref[2]), f"phase 26 (c): CPU-exported counts {moved[2].tolist()} != {ref[2].tolist()}")
+        moved_err = 0.0
+        for i, n in enumerate(ref[2].tolist()):
+            if n:
+                moved_err = max(moved_err, float((moved[0][i, :n, :4] - ref[0][i, :n, :4]).abs().max()),
+                                float((moved[1][i, :n] - ref[1][i, :n]).abs().max()))
+        check(moved_err <= 1e-3, f"phase 26 (c): CPU-exported boxes {moved_err} px from the live detect_batch")
+        moved_equal = all(torch.equal(g, w) for g, w in zip(moved, ref))
+        weight_bytes = {key: sum(t.numel() * t.element_size() for t in st.values()) for key, st in states.items()}
+        sizes = "; ".join(f"{key} {len(blobs[key])} bytes against {weight_bytes[key]} weight bytes, export "
+                          f"{secs[key][0]:.2f} s, load {secs[key][1]:.2f} s" for key in blobs)
+        print(f"phase 26 (c)+(d) AOT artifacts (torch.export), b{BATCH}: loaded trained mnet and seeded R50 (fused stem) "
+              f"torch.equal to detect_batch on phase 5's canvases, the bf16 tower and the int8 face-ID head torch.equal "
+              f"to their eager forwards; the mnet exported on the CPU and moved to the card: counts equal, boxes within "
+              f"{moved_err:.3g} px, bit-equal {moved_equal}; launches in one call of each program {aot_counts}; {sizes}")
+        # (b), continued: the child, up by now
+        up, lines = read_lines(proc, r"serving on :(\d+)", 300)
+        check(up is not None, f"phase 26 (b): the entry point never served: {''.join(lines)[-3000:]}")
+        m, up_s = up[0], up[1] - t_child
+        http_port = int(next(ln.split(":")[-1] for ln in lines if "KServe-v2 HTTP endpoint on" in ln))
+        client = FacePipelineClient(port=int(m.group(1)), timeout_s=300)
+        try:
+            check(client.server_live() and client.server_ready(), "phase 26 (b): gRPC not live and ready")
+            child = TritonHTTPClient(port=http_port, timeout_s=300)
+            check(child.server_live() and child.server_ready(), "phase 26 (b): REST not live and ready")
+            reply = client.extract(jpeg)
+        finally:
+            client.close()
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    check(rc == 0, f"phase 26 (b): the entry point exited {rc} on SIGTERM")
+    # The child runs with a new process's defaults (cuDNN TF32 on, matmul
+    # TF32 off): phase 5's pipeline on the same JPEG under the same.
+    saved_tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, False
+    try:
+        want = extract_reply(p26["pipe"].extract(jpeg))
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
+    check(reply.get("face_count") == want["face_count"] and reply["face_quality"] == want["face_quality"]
+          and (reply["selected_face_box"] is None) == (want["selected_face_box"] is None),
+          f"phase 26 (b): Extract from the entry point {reply} != phase 5's pipeline {want}")
+    box_err, cos = 0.0, 1.0
+    if want["selected_face_box"] is not None:
+        box_err = float(np.abs(np.subtract(reply["selected_face_box"], want["selected_face_box"])).max())
+        cos = float(np.dot(reply["facial_feature"], want["facial_feature"]))
+    check(box_err <= 1e-2 and cos >= 0.9999, f"phase 26 (b): box err {box_err}, cosine {cos}")
+    print(f"phase 26 (b) python -m rs_face_detection_tpu_torch.runtime --port 0 --http-port 0 --warmup "
+          f"--checkpoint-dir <phase 5's detector>: up with its warm-up Extract in {up_s:.1f} s, gRPC and REST live "
+          f"and ready, Extract on one JPEG frame: {reply['face_count']} faces, box err {box_err:.3g} px, cosine "
+          f"{cos:.6f} against phase 5's pipeline, bit-equal {reply == want}; exit code {rc} on SIGTERM {card}")
+
+    # (a) REST over phase 25's registry
+    server = serve(None, reg, port=0, http_port=0, max_workers=8)
+    rest = TritonHTTPClient(port=server._rsfd_http_port, timeout_s=300)
+    wc = TritonWireClient(f"localhost:{server._rsfd_port}", timeout_s=300)
+    try:
+        for name, x in ((det_name, x_det[:1]), (TOWER, x_t)):  # warm-up, not counted
+            rest.infer(name, x)
+        torch.cuda.synchronize()
+        zero_counts()
+        served = {(name, binary): rest.infer(name, x, binary=binary)
+                  for name, x in ((det_name, x_det[:1]), (TOWER, x_t)) for binary in (False, True)}
+        torch.cuda.synchronize()
+        http_counts = read_counts()
+        check(http_counts["flash_attention"] == 2 * 24 and http_counts["nms_mask"] == 0
+              and http_counts["fused_stem"] == http_counts["int8_matmul"] == 0,
+              f"phase 26 (a): launches {http_counts}, want 24 K4 per tower infer and nothing else")
+        for (name, binary), outs in served.items():
+            x = x_det[:1] if name == det_name else x_t
+            got = [arr for _, _, arr in outs]
+            want = direct_forward(dev, reg, cfg, name, x)
+            over_wire = [arr for _, _, arr in wc.model_infer(name, x, use_raw=True)]
+            check(len(got) == len(want) and all(np.array_equal(g, w) for g, w in zip(got, want)),
+                  f"phase 26 (a): REST infer on {name} (binary {binary}) != its forward on the card")
+            check(all(np.array_equal(g, w) for g, w in zip(got, over_wire)),
+                  f"phase 26 (a): REST infer on {name} (binary {binary}) != the wire's ModelInfer")
+        check(rest.server_live() and rest.server_ready() and rest.model_ready(TOWER), "phase 26 (a): not live and ready")
+        check(rest.model_metadata(TOWER)["platform"] == "pytorch_libtorch", "phase 26 (a): metadata")
+        (stats,) = rest.model_statistics(TOWER)
+        check(stats["inference_count"] >= 3, f"phase 26 (a): statistics {stats}")
+        status = rest._request("POST", "/v2/cudasharedmemory/region/gpu0/register", b'{"byte_size": 64}',
+                               ok_statuses=(501,))[0]
+        check(status == 501, f"phase 26 (a): CUDA shared memory answered {status}")
+        module = reg.get(det_name)
+        x8 = torch.from_numpy(x_det).to(dev)
+        with torch.inference_mode():
+            fwd8 = cuda_ms(lambda: module(x8), 10)
+        rest8 = host_ms(lambda: rest.infer(det_name, x_det), 3)
+        # The wire servicer both protocols share, in-process: no transport, no codec.
+        request = {"model_name": det_name, "model_version": "", "id": "", "parameters": {}, "outputs": [],
+                   "inputs": [{"name": "data", "datatype": "FP32", "shape": list(x_det.shape), "parameters": {},
+                               "contents": None}], "raw_input_contents": [x_det.tobytes()]}
+        servicer8 = host_ms(lambda: server._rsfd_wire.model_infer(request, _HttpContext()), 3)
+    finally:
+        wc.close()
+        server.stop(0)
+    print(f"phase 26 (a) KServe-v2 REST on localhost over phase 25's registry: JSON and binary infers on {det_name} "
+          f"(9 maps) and the bf16 tower {TOWER}, each np.array_equal to the module's forward and to the wire's "
+          f"ModelInfer; launches {http_counts}; health, metadata, statistics ({stats['inference_count']} inferences "
+          f"of the tower) and the CUDA shared-memory refusal (501) as in the tests")
+    print(f"phase 26 (a) REST infer {det_name} b{BATCH} binary fp32: {fmt(rest8)} (host clock); the wire servicer's "
+          f"model_infer in-process on the same request {fmt(servicer8)} (host clock); the forward alone {fmt(fwd8)} "
+          f"{card}")
+
+    t_aot = {}
+    for key, iters in (("mnet", 20), ("r50", 5)):
+        det = detectors[key]
+        t_aot[key] = (cuda_ms(lambda det=det: det.detect_batch(canvas, scales), iters),
+                      cuda_ms(lambda key=key: loaded[key](states[key], canvas, scales), iters))
+        print(f"phase 26 (c) {key} detect b{BATCH}: eager detect_batch {fmt(t_aot[key][0])}, loaded program "
+              f"{fmt(t_aot[key][1])} (CUDA events) {card}")
+
+    # each custom op against its direct wrapper from Python, in turns
+    cand = p26["real_cand"]
+    qkv = torch.from_numpy(rng.normal(size=(BATCH, 257, 3, 16, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+    x3 = torch.from_numpy(rng.normal(size=(BATCH, 25088)).astype(np.float32)).to(dev)
+    q3 = torch.from_numpy(rng.integers(-127, 128, (25088, 512), dtype=np.int8)).to(dev)
+    s3 = torch.from_numpy(rng.uniform(1e-4, 1e-3, 512).astype(np.float32)).to(dev)
+    calls = {
+        "nms_mask": (nms_mask, knms.nms_mask_cuda, (cand.boxes, cand.valid, 0.45), 200),
+        "fused_stem": (fused_stem, kstem.fused_stem_cuda, (canvas, *detectors["r50"].stem_consts), 20),
+        "flash_attention": (attention, katt.flash_attention_cuda, (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]), 100),
+        "int8_matmul": (int8_matmul, k3.int8_matmul_cuda, (x3, q3, s3, "f32"), 100),
+    }
+    op_ms = {}
+    for name, (op, wrapper, args, iters) in calls.items():
+        check(torch.equal(op(*args), wrapper(*args)), f"phase 26: the {name} op != its wrapper")
+        w1 = cuda_ms(lambda: wrapper(*args), iters)
+        o1 = cuda_ms(lambda: op(*args), iters)
+        o2 = cuda_ms(lambda: op(*args), iters)
+        w2 = cuda_ms(lambda: wrapper(*args), iters)
+        op_ms[name] = (min(o1, o2), min(w1, w2))
+    print("phase 26 custom ops from Python (CUDA events over back-to-back calls; the op through torch's "
+          "dispatcher, then the direct ctypes wrapper): " + "; ".join(
+              f"{name} op {fmt(o)}, wrapper {fmt(w)}" for name, (o, w) in op_ms.items()) + f" {card}")
+    print(f"phase 26 deployment surfaces: {time.perf_counter() - t_phase:.1f} s in all {card}")
+    return {"http": http_counts, "aot": aot_counts, "op_python_ms": op_ms}
 
 
 def gpu_tests_phase(card):
@@ -2813,7 +3144,11 @@ def main() -> int:
     # not change when an earlier phase draws more or less.
     by_path.update(offline_phase(dev, np.random.default_rng(SEED + 23), face, card, det_sd))
     by_path.update(int8_detect_phase(dev, np.random.default_rng(SEED + 24), face, card, det_sd))
-    by_path.update(serving_phase(dev, card, dict(p5, q_sd=q_sd, e_sd=e_sd, frames=frames), ekyc))
+    p25 = dict(p5, q_sd=q_sd, e_sd=e_sd, frames=frames)
+    reg = serving_registry(dev, p25, ekyc)
+    by_path.update(serving_phase(dev, card, p25, ekyc, reg))
+    deploy = deployment_phase(dev, card, reg, dict(p25, canvas=canvas, real_cand=real_cand, r50_sd=r50_sd))
+    by_path.update(http=deploy["http"], aot=deploy["aot"])
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")
@@ -2863,6 +3198,9 @@ def main() -> int:
     for entry in entries:  # launches as counted on each main path's run
         entry["launches_by_path"] = {path: counts[entry["name"]] for path, counts in by_path.items()}
         entry["launches"] = sum(entry["launches_by_path"].values())
+        # From Python through the custom op, as every path calls it now, and
+        # through the ctypes wrapper alone (phase 26, in turns).
+        entry["python_ms"], entry["wrapper_python_ms"] = (t[0] for t in deploy["op_python_ms"][entry["name"]])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

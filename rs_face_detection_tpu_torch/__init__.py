@@ -6,6 +6,12 @@ H100.  It mirrors that package's layout (``configs``, ``ops/``, ``models/``,
 (their build and wrappers) and ``tools/`` (scripts for the card).  It
 imports torch and numpy, never JAX nor any module of the JAX package, and
 its entry points run on the CUDA card unless given ``device="cpu"``.
+
+Importing the package registers the kernels' custom ops (``rsfd::nms_mask``,
+``rsfd::fused_stem``, ``rsfd::attention``, ``rsfd::int8_matmul``), which a
+graph saved by ``runtime.aot`` needs to load.
 """
 
 __version__ = "0.1.0"
+
+from .ops import attention, nms, quantize, stem  # noqa: E402,F401  (registers the rsfd:: ops)

@@ -10,8 +10,10 @@ dtype:
 
   - ``attention_plain``: plain PyTorch, scores in f32, the softmax in f32,
     then PV in f32; the CPU path and the kernel's reference;
-  - ``attention``: the dispatcher.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the CUDA kernel (kernels/attention.py) or raises.
+  - ``attention``: the custom op ``rsfd::attention``, one node in a traced
+    or exported graph.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the CUDA kernel (kernels/attention.py) or raises; any other
+    device raises.
 
 No mask and no dropout: the ViT's attention is dense and inference-only.
 """
@@ -36,12 +38,26 @@ def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(q.dtype).contiguous()
 
 
+@torch.library.custom_op("rsfd::attention", mutates_args=(), device_types="cpu")
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The custom op ``rsfd::attention``: the plain version on the CPU."""
+    return attention_plain(q, k, v)
+
+
+@attention_op.register_kernel("cuda")
+def _attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    from ..kernels.attention import flash_attention_cuda
+
+    return flash_attention_cuda(q, k, v)
+
+
+@attention_op.register_fake
+def _attention_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return q.new_empty(q.shape)
+
+
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """K4 on a CUDA tensor, the plain version on a CPU tensor."""
-    if q.device.type == "cuda":
-        from ..kernels.attention import flash_attention_cuda
-
-        return flash_attention_cuda(q, k, v)
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    raise ValueError(f"attention: unsupported device {q.device}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"attention: unsupported device {q.device}")
+    return attention_op(q, k, v)

@@ -9,9 +9,11 @@ both are valid and their IoU is > the threshold.
 ``nms_numpy`` is the host version over a handful of rows in numpy (TTA's
 cross-view merge, pipeline/tta.py), not the detector's NMS.
 
-``nms_mask`` is what the detector calls.  On a CPU tensor it runs the plain
-version below; on a CUDA tensor it launches the CUDA kernel
-(kernels/nms.py) or raises.  There is no fallback between the two.
+``nms_mask`` is what the detector calls: the custom op ``rsfd::nms_mask``,
+one node in a traced or exported graph.  On a CPU tensor the op runs the
+plain version below; on a CUDA tensor it launches the CUDA kernel
+(kernels/nms.py) or raises.  There is no fallback between the two, and
+any other device raises.
 """
 
 from __future__ import annotations
@@ -109,14 +111,28 @@ def nms_mask_plain(
     return keep
 
 
+@torch.library.custom_op("rsfd::nms_mask", mutates_args=(), device_types="cpu")
+def nms_mask_op(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The custom op ``rsfd::nms_mask``: the plain version on the CPU."""
+    return nms_mask_plain(boxes, valid, iou_threshold)
+
+
+@nms_mask_op.register_kernel("cuda")
+def _nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    from ..kernels.nms import nms_mask_cuda
+
+    return nms_mask_cuda(boxes, valid, iou_threshold)
+
+
+@nms_mask_op.register_fake
+def _nms_mask_fake(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
 def nms_mask(
     boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float
 ) -> torch.Tensor:
     """Greedy-NMS keep mask (B, K) bool; the kernel on CUDA, plain on CPU."""
-    if boxes.device.type == "cuda":
-        from ..kernels.nms import nms_mask_cuda
-
-        return nms_mask_cuda(boxes, valid, iou_threshold)
-    if boxes.device.type == "cpu":
-        return nms_mask_plain(boxes, valid, iou_threshold)
-    raise ValueError(f"nms_mask: unsupported device {boxes.device}")
+    if boxes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"nms_mask: unsupported device {boxes.device}")
+    return nms_mask_op(boxes, valid, float(iou_threshold))

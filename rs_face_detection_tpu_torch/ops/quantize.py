@@ -21,8 +21,10 @@ Counterpart of the weight-only half of rs_face_detection_tpu/ops/quantize.py
       ``compute="bf16"``: the Pallas kernel's rounding chain: x rounded to
       bf16, the weight ``bf16(q) * bf16(s)`` rounded to bf16, the products
       (exact in f32) summed in f32;
-  - ``int8_matmul``: the dispatcher.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the CUDA kernel (kernels/int8_matmul.py) or raises.
+  - ``int8_matmul``: the custom op ``rsfd::int8_matmul``, one node in a
+    traced or exported graph.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the CUDA kernel (kernels/int8_matmul.py) or raises; any
+    other device raises.
 
 And of its full int8 inference (``calibrate``, ``quantize_retinaface``): a
 float RetinaFace becomes a copy whose ConvBN convs run int8 activations
@@ -109,17 +111,32 @@ def int8_matmul_plain(
     return x.float() @ (q.float() * s.float())
 
 
+@torch.library.custom_op("rsfd::int8_matmul", mutates_args=(), device_types="cpu")
+def int8_matmul_op(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, compute: str) -> torch.Tensor:
+    """The custom op ``rsfd::int8_matmul``: the plain version on the CPU."""
+    return int8_matmul_plain(x, q, scale, compute)
+
+
+@int8_matmul_op.register_kernel("cuda")
+def _int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, compute: str) -> torch.Tensor:
+    from ..kernels.int8_matmul import int8_matmul_cuda
+
+    return int8_matmul_cuda(x, q, scale, compute)
+
+
+@int8_matmul_op.register_fake
+def _int8_matmul_fake(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, compute: str) -> torch.Tensor:
+    n = check_int8_operands(x, q, scale, compute)
+    return x.new_empty((x.shape[0], n), dtype=torch.float32)
+
+
 def int8_matmul(
     x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, compute: str = "f32"
 ) -> torch.Tensor:
     """K3 on a CUDA tensor, the plain version on a CPU tensor."""
-    if x.device.type == "cuda":
-        from ..kernels.int8_matmul import int8_matmul_cuda
-
-        return int8_matmul_cuda(x, q, scale, compute)
-    if x.device.type == "cpu":
-        return int8_matmul_plain(x, q, scale, compute)
-    raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"int8_matmul: unsupported device {x.device}")
+    return int8_matmul_op(x, q, scale, compute)
 
 
 def calibrate(qmodel: nn.Module, batches: Iterable[torch.Tensor]) -> nn.Module:

@@ -10,8 +10,10 @@ take those:
 
   - ``fused_stem_plain``: plain PyTorch (s2d layout, normalize, conv2d,
     affine, ReLU, max_pool2d); the CPU path and the kernel's reference;
-  - ``fused_stem``: the dispatcher.  A CPU tensor takes the plain version; a
-    CUDA tensor launches the CUDA kernel (kernels/stem.py) or raises.
+  - ``fused_stem``: the custom op ``rsfd::fused_stem``, one node in a traced
+    or exported graph.  A CPU tensor takes the plain version; a CUDA tensor
+    launches the CUDA kernel (kernels/stem.py) or raises; any other device
+    raises.
 
 Both read the letterboxed (B, H, W, 3) uint8 BGR canvas as it is (s2d
 channel k = (bi*2 + bj)*3 + c is pixel (2i + bi, 2j + bj, c)) and return
@@ -90,14 +92,37 @@ def fused_stem_plain(
     return F.max_pool2d(y, 3, 2, 1)
 
 
+@torch.library.custom_op("rsfd::fused_stem", mutates_args=(), device_types="cpu")
+def fused_stem_op(
+    imgs_u8: torch.Tensor, w192: torch.Tensor, bn2: torch.Tensor, norm2: torch.Tensor
+) -> torch.Tensor:
+    """The custom op ``rsfd::fused_stem``: the plain version on the CPU, in
+    the kernel's contiguous NCHW layout (the plain conv's output keeps the
+    channels-last strides of the s2d frame)."""
+    return fused_stem_plain(imgs_u8, w192, bn2, norm2).contiguous()
+
+
+@fused_stem_op.register_kernel("cuda")
+def _fused_stem_cuda(
+    imgs_u8: torch.Tensor, w192: torch.Tensor, bn2: torch.Tensor, norm2: torch.Tensor
+) -> torch.Tensor:
+    from ..kernels.stem import fused_stem_cuda
+
+    return fused_stem_cuda(imgs_u8, w192, bn2, norm2)
+
+
+@fused_stem_op.register_fake
+def _fused_stem_fake(
+    imgs_u8: torch.Tensor, w192: torch.Tensor, bn2: torch.Tensor, norm2: torch.Tensor
+) -> torch.Tensor:
+    b, h, w = imgs_u8.shape[:3]
+    return imgs_u8.new_empty((b, STEM_CHANNELS, *stem_output_hw(h, w)), dtype=torch.float32)
+
+
 def fused_stem(
     imgs_u8: torch.Tensor, w192: torch.Tensor, bn2: torch.Tensor, norm2: torch.Tensor
 ) -> torch.Tensor:
     """K2 on a CUDA tensor, the plain version on a CPU tensor."""
-    if imgs_u8.device.type == "cuda":
-        from ..kernels.stem import fused_stem_cuda
-
-        return fused_stem_cuda(imgs_u8, w192, bn2, norm2)
-    if imgs_u8.device.type == "cpu":
-        return fused_stem_plain(imgs_u8, w192, bn2, norm2)
-    raise ValueError(f"fused_stem: unsupported device {imgs_u8.device}")
+    if imgs_u8.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_stem: unsupported device {imgs_u8.device}")
+    return fused_stem_op(imgs_u8, w192, bn2, norm2)

@@ -154,6 +154,24 @@ def descale(padded: PaddedDetections, inv_scale: torch.Tensor) -> PaddedDetectio
     return PaddedDetections(det, padded.kps * inv[..., None], padded.count)
 
 
+def fold_model_stem(model: nn.Module, cfg: FaceDetectionConfig):
+    """The fused stem's folded constants (ops/stem.py::fold_stem_params) from
+    an s2d model's stem conv and BatchNorm and the config's pixel
+    normalization."""
+    body = model.body
+    return fold_stem_params(
+        body.conv1.weight.detach().permute(2, 3, 1, 0),  # OIHW -> HWIO
+        body.bn1.weight.detach(),
+        body.bn1.bias.detach(),
+        body.bn1.running_mean,
+        body.bn1.running_var,
+        cfg.pixel_means,
+        cfg.pixel_stds,
+        cfg.pixel_scale,
+        body.bn1.eps,
+    )
+
+
 class RetinaFaceDetection:
     """Detector with the host-facing contract
     ``__call__(image_bgr_u8) -> (det (N, 5), kps (N, 5, 2))`` in numpy, in
@@ -198,20 +216,7 @@ class RetinaFaceDetection:
         fused_ok = self.model.uses_s2d_stem() and not getattr(self.model, "quant", False)
         if stem == "fused" and not fused_ok:
             raise ValueError("stem='fused' needs a float model with the s2d stem (the ResNet-50), not an int8 one")
-        self.stem_consts = None
-        if fused_ok:
-            body = self.model.body
-            self.stem_consts = fold_stem_params(
-                body.conv1.weight.detach().permute(2, 3, 1, 0),  # OIHW -> HWIO
-                body.bn1.weight.detach(),
-                body.bn1.bias.detach(),
-                body.bn1.running_mean,
-                body.bn1.running_var,
-                self.cfg.pixel_means,
-                self.cfg.pixel_stds,
-                self.cfg.pixel_scale,
-                body.bn1.eps,
-            )
+        self.stem_consts = fold_model_stem(self.model, self.cfg) if fused_ok else None
 
     def forward(self, images: torch.Tensor) -> Dict[int, Dict[str, torch.Tensor]]:
         """The network on (B, H, W, 3) float BGR pixels in [0, 255]."""
@@ -224,12 +229,14 @@ class RetinaFaceDetection:
         ) / cfg.pixel_scale
         return self.model(x.permute(0, 3, 1, 2).contiguous())
 
-    def candidates(self, imgs_u8: torch.Tensor) -> Candidates:
+    def candidates(self, imgs_u8: torch.Tensor, stem_consts=None) -> Candidates:
         """Top-k decoded candidates of (B, H, W, 3) letterboxed uint8 frames
-        (H and W even for an s2d model)."""
+        (H and W even for an s2d model).  ``stem_consts`` replaces the
+        detector's folded stem constants (runtime/aot.py folds them from the
+        weights it is called with)."""
         with torch.no_grad():
             if self.stem_consts is not None:
-                pooled = fused_stem(imgs_u8.contiguous(), *self.stem_consts)
+                pooled = fused_stem(imgs_u8.contiguous(), *(stem_consts or self.stem_consts))
                 net_out = self.model.forward_pooled(pooled)
             else:
                 net_out = self.forward(imgs_u8.float())

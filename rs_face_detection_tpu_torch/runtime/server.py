@@ -818,15 +818,13 @@ def serve(
     stream_batch_size: the batch of DetectStream's DetectionServer, which
     is also the dynamic batcher's cap (the JAX copy fixes it at 4).
 
-    http_port: the KServe-v2 HTTP/REST endpoint of the JAX package
-    (runtime/http.py) is not ported yet, so any value raises
-    NotImplementedError.
+    http_port: when set, also serve the KServe-v2 HTTP/REST endpoint
+    (runtime/http.py) on that port (0 picks a free one), over the same wire
+    servicer as the gRPC protocol, so both share the shared-memory
+    registry, the statistics and the trace session.  The HTTP server is
+    attached as ``server._rsfd_http`` (its port as ``server._rsfd_http_port``)
+    and stopped by ``server.stop``.
     """
-    if http_port is not None:
-        raise NotImplementedError(
-            "serve(http_port=...): the KServe-v2 HTTP/REST endpoint "
-            "(runtime/http.py) is not ported yet (ROADMAP.md, M12b)"
-        )
     if not _HAS_GRPC:
         raise RuntimeError("grpcio not available")
     if registry is None:
@@ -856,23 +854,34 @@ def serve(
     )
     server.add_generic_rpc_handlers((_handlers(servicer),))
     wire_servicer = None
-    if triton_wire:
+    if triton_wire or http_port is not None:
         from .wire import TritonWireServicer, health_handlers, wire_handlers
 
         # facade=servicer: shm regions and the torch.profiler trace session
-        # are shared between the JSON and protobuf protocols.
+        # are shared between the JSON, protobuf and HTTP protocols.
         wire_servicer = TritonWireServicer(registry, facade=servicer)
-        server.add_generic_rpc_handlers(
-            (wire_handlers(wire_servicer), health_handlers(wire_servicer))
-        )
+        if triton_wire:
+            server.add_generic_rpc_handlers(
+                (wire_handlers(wire_servicer), health_handlers(wire_servicer))
+            )
     bound = server.add_insecure_port(f"[::]:{port}")
     server.start()
     server._rsfd_port = bound  # convenience for port=0 callers
     server._rsfd_servicer = servicer
     server._rsfd_wire = wire_servicer
+    http_server = None
+    if http_port is not None:
+        from .http import serve_http
+
+        http_server = serve_http(wire_servicer=wire_servicer, port=http_port)
+        server._rsfd_http = http_server
+        server._rsfd_http_port = http_server._rsfd_port
     _grpc_stop = server.stop
 
     def _stop(grace=None):
+        if http_server is not None:
+            http_server.shutdown()
+            http_server.server_close()
         if wire_servicer is not None:
             wire_servicer.close()  # stop dynamic-batcher workers
         servicer.close()

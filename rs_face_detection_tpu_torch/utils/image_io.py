@@ -1,7 +1,7 @@
-"""Host-side image byte decoding.
+"""Host-side image byte decoding and the named-landmark layout.
 
-The port's copy of rs_face_detection_tpu/utils/image_io.py::
-decode_image_bytes: raw JPEG/PNG bytes -> (H, W, 3) uint8 BGR, alpha dropped
+The port's copy of rs_face_detection_tpu/utils/image_io.py:
+``decode_image_bytes``, raw JPEG/PNG bytes -> (H, W, 3) uint8 BGR, alpha dropped
 and grayscale replicated.  OpenCV and PIL are imported at the call, so the
 package imports on a machine that has neither; such a machine feeds arrays.
 """
@@ -44,3 +44,11 @@ def decode_image_bytes(data: bytes) -> np.ndarray:
     if img.dtype != np.uint8:
         img = np.clip(img, 0, 255).astype(np.uint8)
     return np.ascontiguousarray(img)
+
+
+def named_landmarks_to_array(landmarks: dict) -> np.ndarray:
+    """A named-landmark mapping -> the (5, 2) detector layout, rows
+    [left_eye, right_eye, nose, left_mouth, right_mouth] (JAX's
+    ``named_landmarks_to_array``, copied)."""
+    order = ("left_eye", "right_eye", "nose", "left_mouth", "right_mouth")
+    return np.asarray([landmarks[k] for k in order], dtype=np.float32)

@@ -6,6 +6,12 @@ and the batched path.  Required: equal counts, boxes and landmarks within
 """
 
 import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import threading
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +50,96 @@ def _assert_same(got_det, got_kps, want_det, want_kps):
     np.testing.assert_allclose(got_det[:, :4], want_det[:, :4], atol=1e-3)
     np.testing.assert_allclose(got_det[:, 4], want_det[:, 4], atol=1e-5)
     np.testing.assert_allclose(np.asarray(got_kps), np.asarray(want_kps), atol=1e-3)
+
+
+#: The ABI version JAX's runtime/native.py::load accepts.
+JAX_NATIVE_ABI = 4
+
+
+def _native_library_state(path, quiet_s=1.0):
+    """None when the library at ``path`` is complete, else why not: absent,
+    written less than ``quiet_s`` ago (a build may still be writing it), or
+    a copy of it does not load with JAX's ABI in a child process (a
+    truncated library can kill the process that maps it with SIGBUS)."""
+    try:
+        st = os.stat(path)
+    except FileNotFoundError:
+        return "absent"
+    age = time.time() - st.st_mtime
+    if age < quiet_s:
+        return f"written {age:.2f} s ago ({st.st_size} bytes), maybe still growing"
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = os.path.join(tmp, os.path.basename(path))
+        shutil.copyfile(path, copy)
+        if os.stat(path).st_mtime != st.st_mtime:
+            return "rewritten while it was copied"
+        probe = "import ctypes, sys; print(ctypes.CDLL(sys.argv[1]).rsfd_abi_version())"
+        proc = subprocess.run([sys.executable, "-c", probe, copy], capture_output=True, text=True, timeout=60)
+    if proc.returncode != 0 or proc.stdout.strip() != str(JAX_NATIVE_ABI):
+        return (f"a copy of its {st.st_size} bytes does not load with ABI {JAX_NATIVE_ABI} "
+                f"(rc {proc.returncode}: {proc.stderr.strip()[-200:]})")
+    return None
+
+
+def load_jax_native(monkeypatch, timeout_s=120.0):
+    """JAX's native library (rs_face_detection_tpu/runtime/native.py),
+    loaded even when another test process is building it at this moment.
+
+    JAX's ``load()`` memoizes a failure for the life of the process, and a
+    process that maps ``native/librsfd_native.so`` while ``make`` writes it
+    in place fails.  So when ``load()`` returns None, wait until the file is
+    complete, clear the memo for this test only and load again; fail with
+    the reason after ``timeout_s``.  Never skips and never accepts cv2."""
+    from rs_face_detection_tpu.runtime import native as jnative
+
+    deadline = time.monotonic() + timeout_s
+    absent_since = time.monotonic()
+    lib = jnative.load()
+    while lib is None:
+        reason = _native_library_state(jnative._LIB_PATH)
+        if reason != "absent":
+            absent_since = time.monotonic()
+        # Absent for 10 s: nobody is building it, so load() builds it.
+        if reason is None or time.monotonic() - absent_since > 10.0:
+            monkeypatch.setattr(jnative, "_load_failed", False)
+            lib = jnative.load()
+            if lib is not None:
+                break
+            reason = reason or "complete, but JAX's load() returned None"
+        if time.monotonic() > deadline:
+            pytest.fail(f"JAX's native library did not load within {timeout_s} s: {reason}")
+        time.sleep(0.2)
+    return lib
+
+
+def test_p10_jax_native_loads_after_a_concurrent_build(tmp_path, monkeypatch):
+    """A library still being written fails JAX's load(), which memoizes the
+    failure; load_jax_native waits for the whole file and loads it."""
+    from rs_face_detection_tpu.runtime import native as jnative
+
+    whole = open(load_jax_native(monkeypatch)._name, "rb").read()
+    native_dir = tmp_path / "native"
+    shutil.copytree(os.path.dirname(jnative._LIB_PATH), native_dir)
+    so = native_dir / "librsfd_native.so"
+    so.write_bytes(whole[:64])  # the ELF header alone: what a build writes first
+    monkeypatch.setattr(jnative, "_NATIVE_DIR", str(native_dir))
+    monkeypatch.setattr(jnative, "_LIB_PATH", str(so))
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_load_failed", False)
+    assert jnative.load() is None and jnative._load_failed  # the memoized failure
+
+    def finish():
+        time.sleep(0.5)
+        so.write_bytes(whole)
+
+    writer = threading.Thread(target=finish)
+    writer.start()
+    try:
+        lib = load_jax_native(monkeypatch, timeout_s=30.0)
+    finally:
+        writer.join()
+    assert lib is not None and lib is jnative._lib and lib._name == str(so)
+    assert lib.rsfd_abi_version() == JAX_NATIVE_ABI
 
 
 @pytest.fixture(scope="module")

@@ -65,8 +65,14 @@ def _run(root, *extra, capsys, ckpt=CKPT, size=64):
     return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
 
 
-def _run_jax(root, *extra, capsys, ckpt=CKPT, size=64):
-    """The JAX package's entry point (tools/eval_wider.py) on the same tree."""
+def _run_jax(root, *extra, capsys, monkeypatch, ckpt=CKPT, size=64):
+    """The JAX package's entry point (tools/eval_wider.py) on the same tree;
+    a batched run serves through JAX's DetectionServer, whose default loader
+    is JAX's native library, loaded first through load_jax_native."""
+    from test_torch_detection import load_jax_native
+
+    if "--no-batched" not in extra:
+        load_jax_native(monkeypatch)
     argv = ["eval_wider.py", "--root", root, "--backbone", "mobilenet025", "--checkpoint", ckpt,
             "--size", str(size), "--split", "all", *extra]
     tool = _load_tool("eval_wider")
@@ -149,7 +155,7 @@ def test_production_shape_gate(tmp_path_factory, capsys):
         assert flip[split]["ap"] >= res[split]["ap"] - 0.03, (flip, res)
 
 
-def test_batched_ap_equals_the_jax_entry_point(collage_tree, capsys):
+def test_batched_ap_equals_the_jax_entry_point(collage_tree, capsys, monkeypatch):
     """Both entry points batched through their DetectionServer, whose
     default loader is the native one (the JAX package printed
     0.9860/0.9924/0.9265 for this tree)."""
@@ -157,12 +163,12 @@ def test_batched_ap_equals_the_jax_entry_point(collage_tree, capsys):
 
     assert native.available(), native.unavailable_reason()
     port = _run(collage_tree, "--batch-size=8", capsys=capsys)
-    ref = _run_jax(collage_tree, "--batch-size=8", capsys=capsys)
+    ref = _run_jax(collage_tree, "--batch-size=8", capsys=capsys, monkeypatch=monkeypatch)
     assert _printed(port) == _printed(ref), (port, ref)
     assert _printed(port)["hard"] == "0.9265", port
 
 
-def test_approx_topk_ap_parity_on_real_collages(collage_tree, capsys):
+def test_approx_topk_ap_parity_on_real_collages(collage_tree, capsys, monkeypatch):
     """tests/test_real_collage.py's approx gate on the port's entry point: at
     a cap of 64 candidates, below the 168 anchors of mnet025 at 64x64, approx
     is within 0.02 AP of exact on every split, and equal to the JAX entry
@@ -180,7 +186,7 @@ def test_approx_topk_ap_parity_on_real_collages(collage_tree, capsys):
     for split in ("easy", "medium", "hard"):
         assert abs(approx[split]["ap"] - exact[split]["ap"]) <= 0.02, (split, exact, approx)
     ref = _run_jax(collage_tree, "--no-batched", "--max-candidates", cap, "--candidate-selection", "approx",
-                   capsys=capsys)
+                   capsys=capsys, monkeypatch=monkeypatch)
     assert _printed(approx) == _printed(ref), (approx, ref)
 
 

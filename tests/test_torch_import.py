@@ -47,7 +47,8 @@ def test_port_imports_without_jax():
         "ops.matching", "ops.eval", "ops.wider", "ops.wider_split", "pipeline.tracking",
         "pipeline.multiscale", "pipeline.tta", "utils.synthetic", "utils.fixtures", "tools.eval_wider",
         "ops.int8_conv", "runtime.native", "runtime.proto3", "runtime.shm", "runtime.batcher",
-        "runtime.repository", "runtime.wire", "runtime.server",
+        "runtime.repository", "runtime.wire", "runtime.server", "runtime.http", "runtime.__main__",
+        "runtime.aot", "utils.coordinate", "utils.debug",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]
 
@@ -79,7 +80,7 @@ def test_package_imports_with_modules_blocked(blocked):
     )
     assert proc.returncode == 0, proc.stderr
     report = json.loads(proc.stdout.strip().splitlines()[-1])
-    for name in ("proto3", "shm", "batcher", "repository", "wire", "server"):
+    for name in ("proto3", "shm", "batcher", "repository", "wire", "server", "http", "aot", "__main__"):
         assert f"rs_face_detection_tpu_torch.runtime.{name}" in report["modules"]
     assert report["grpc"] is (blocked != ("grpc",))
 
@@ -117,7 +118,7 @@ def test_kernel_card_tests_collect_without_jax():
         "FaceExtraction", "FaceQuality", "FaceQualityAssessment", "FaceAntiSpoofing", "Gallery",
         "DetectionServer", "ModelRegistry", "standard_registry", "default_registry",
         "MultiScaleDetection", "TTADetection", "VideoPipeline", "load_trained_detector", "eval_wider",
-        "quantize_retinaface",
+        "quantize_retinaface", "runtime", "export_detector", "load_detector",
     ],
 )
 def test_entry_points_default_to_the_card(entry):
@@ -138,6 +139,8 @@ def test_entry_points_default_to_the_card(entry):
         quality_assessment,
     )
     from rs_face_detection_tpu_torch.pipeline import multiscale, tracking, tta
+    from rs_face_detection_tpu_torch.runtime import __main__ as runtime_main
+    from rs_face_detection_tpu_torch.runtime import aot
     from rs_face_detection_tpu_torch.serving import detection_server
     from rs_face_detection_tpu_torch.tools import eval_wider
     from rs_face_detection_tpu_torch.utils import fixtures
@@ -163,6 +166,9 @@ def test_entry_points_default_to_the_card(entry):
         "load_trained_detector": lambda: fixtures.load_trained_detector(ckpt),
         "eval_wider": lambda: eval_wider.main(["--root", REPO, "--checkpoint", ckpt]),
         "quantize_retinaface": lambda: quantize.quantize_retinaface(RetinaFace(), (64, 64)),
+        "runtime": lambda: runtime_main.main(["--port", "0", "--http-port", "0"]),
+        "export_detector": lambda: aot.export_detector(detection.RetinaFaceDetection()),
+        "load_detector": lambda: aot.load_detector(b""),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls()

@@ -1,5 +1,6 @@
 """The port's four CUDA kernels against their plain PyTorch versions, and its
-int8 conv against the CPU's, on the card.  Every test here is marked ``gpu`` and skips where there is no card.
+int8 conv against the CPU's, and the kernels' custom ops against the direct
+wrappers, on the card.  Every test here is marked ``gpu`` and skips where there is no card.
 
 This file imports only numpy, pytest, torch and the port, so it runs where
 JAX is not installed.  tests/conftest.py imports JAX, so on the card run it
@@ -382,3 +383,47 @@ def test_int8_conv_on_the_card_equals_the_cpu(cuda, case):
         acc = int8_conv2d(codes[:b], w, stride, padding)
         acc_dev = int8_conv2d(codes_dev[:b], w.to(cuda), stride, padding)
         assert acc_dev.dtype == torch.int32 and torch.equal(acc_dev.cpu(), acc)
+
+
+# --- the kernels as custom ops ------------------------------------------------
+
+
+def _op_and_wrapper(case, dev, rng):
+    """(the custom op's dispatcher, the direct wrapper, its launch counter
+    module, the arguments) at a main-path shape."""
+    from rs_face_detection_tpu_torch.ops import attention, nms, stem
+
+    if case == "nms_mask":
+        boxes = torch.from_numpy(_sorted_batch(rng, 8, 128)).to(dev)
+        valid = torch.from_numpy(rng.uniform(size=(8, 128)) > 0.2).to(dev)
+        return nms.nms_mask, knms.nms_mask_cuda, knms, (boxes, valid, 0.45)
+    if case == "fused_stem":
+        canvas = torch.from_numpy(rng.integers(0, 256, (2, 72, 96, 3), dtype=np.uint8)).to(dev)
+        consts = fold_stem_params(
+            *(torch.from_numpy(a.astype(np.float32)) for a in (
+                rng.normal(size=(4, 4, 12, 64)) / 14.0, rng.uniform(0.5, 1.5, 64), rng.normal(0, 0.1, 64),
+                rng.normal(0, 0.1, 64), rng.uniform(0.5, 1.5, 64))), MEANS, STDS, 1.0)
+        return stem.fused_stem, kstem.fused_stem_cuda, kstem, (canvas, *(c.to(dev) for c in consts))
+    if case == "attention":
+        qkv = torch.from_numpy(rng.normal(size=(2, 257, 3, 16, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+        return attention.attention, katt.flash_attention_cuda, katt, (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
+    x = torch.from_numpy(rng.normal(size=(8, 4096)).astype(np.float32)).to(dev)
+    q = torch.from_numpy(rng.integers(-127, 128, (4096, 512), dtype=np.int8)).to(dev)
+    s = torch.from_numpy(rng.uniform(0.001, 0.01, 512).astype(np.float32)).to(dev)
+    return quantize.int8_matmul, k3.int8_matmul_cuda, k3, (x, q, s, "f32")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["nms_mask", "fused_stem", "attention", "int8_matmul"])
+def test_custom_op_on_the_card_equals_the_wrapper(cuda, case):
+    """The rsfd:: custom op launches the kernel once (no fallback to the
+    plain version) and gives the direct wrapper's bits."""
+    op, wrapper, counter, args = _op_and_wrapper(case, cuda, np.random.default_rng(31))
+    before = counter.launches
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = wrapper(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape and got.stride() == want.stride()
+    assert torch.equal(got, want)

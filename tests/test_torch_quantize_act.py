@@ -428,7 +428,7 @@ def trained_int8():
     return jdet, det, frames
 
 
-def test_quantized_detect_batch_and_server_hold_against_jax(trained_int8):
+def test_quantized_detect_batch_and_server_hold_against_jax(trained_int8, monkeypatch):
     """The port's int8 ``detect_batch`` on the fixture frames' canvases
     against JAX's int8 ``make_batched_fn()``, and the port's
     DetectionServer on their JPEG bytes (native loader) against JAX's
@@ -437,7 +437,7 @@ def test_quantized_detect_batch_and_server_hold_against_jax(trained_int8):
     cv2 = pytest.importorskip("cv2")
     from rs_face_detection_tpu.parallel.serving import DetectionServer as JDetectionServer
     from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
-    from test_torch_detection import _assert_same
+    from test_torch_detection import _assert_same, load_jax_native
 
     jdet, det, frames = trained_int8
     canvases = np.stack(frames)
@@ -456,6 +456,7 @@ def test_quantized_detect_batch_and_server_hold_against_jax(trained_int8):
         ok, jpg = cv2.imencode(".jpg", big, [cv2.IMWRITE_JPEG_QUALITY, 95])
         assert ok
         payloads.append(jpg.tobytes())
+    load_jax_native(monkeypatch)
     with JDetectionServer(jdet, batch_size=8) as jserver, DetectionServer(det, batch_size=8) as server:
         assert server._native is not None and jserver._native is not None, server.native_unavailable
         results, want = server.detect_batch(payloads), jserver.detect_batch(payloads)

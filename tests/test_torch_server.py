@@ -326,8 +326,3 @@ def test_ekyc_verify_matches_jax():
         pc.close()
         js.stop(0)
         ps.stop(0)
-
-
-def test_http_port_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="http"):
-        pserve(None, preg.ModelRegistry("cpu"), port=0, http_port=0)

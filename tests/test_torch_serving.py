@@ -103,7 +103,7 @@ def _collage_jpegs(tmp_path_factory):
 
 
 @pytest.mark.parametrize("use_native_loader", [False, True], ids=["cv2", "native"])
-def test_detect_batch_matches_jax_server(mnet, frames, use_native_loader, tmp_path_factory):
+def test_detect_batch_matches_jax_server(mnet, frames, use_native_loader, tmp_path_factory, monkeypatch):
     cv2 = pytest.importorskip("cv2")
     if not use_native_loader:
         batch = [cv2.resize(f, (97, 99), interpolation=cv2.INTER_LINEAR) for f in frames[:4]]
@@ -119,8 +119,11 @@ def test_detect_batch_matches_jax_server(mnet, frames, use_native_loader, tmp_pa
     from rs_face_detection_tpu_torch.configs import FaceDetectionConfig as PortConfig
     from rs_face_detection_tpu_torch.utils.fixtures import load_trained_detector as port_detector
 
+    from test_torch_detection import load_jax_native
+
     payloads = _collage_jpegs(tmp_path_factory)
     assert len(payloads) == 20
+    load_jax_native(monkeypatch)
     fields = dict(image_size=(64, 64), confidence_threshold=0.02, max_candidates=256)
     ckpt = os.path.join(FIXTURES, "trained_real64.npz")
     ref = JDetectionServer(load_trained_detector(ckpt, FaceDetectionConfig(**fields)), batch_size=8)

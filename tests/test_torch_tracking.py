@@ -114,13 +114,15 @@ def _clip(n=12, h=64, w=80):
     return frames
 
 
-def test_video_pipeline_equals_jax():
+def test_video_pipeline_equals_jax(monkeypatch):
     from rs_face_detection_tpu.parallel.serving import DetectionServer as JDetectionServer
     from rs_face_detection_tpu.utils.fixtures import load_trained_detector as jload
     from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
     from rs_face_detection_tpu_torch.utils.fixtures import load_trained_detector
+    from test_torch_detection import load_jax_native
 
     frames = _clip()
+    load_jax_native(monkeypatch)  # JAX's default server takes its native loader
     jpipe = jtrack.VideoPipeline(JDetectionServer(jload(TRAINED), batch_size=4), jtrack.IouTracker(min_hits=2))
     want = list(jpipe.run(iter(frames)))
     with DetectionServer(load_trained_detector(TRAINED, device="cpu"), batch_size=4) as server:
