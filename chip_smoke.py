@@ -2,8 +2,9 @@
 """Drive the PyTorch port's main paths once on a CUDA card: face-ID, eKYC, the
 weight-only int8 FaceExtraction, checkpoint serving through the registry,
 offline evaluation and video (multi-scale, TTA, tracking, AP), the
-calibrated int8-activation detector, the gRPC serving runtime, and the
-deployment surfaces (REST, the runtime's entry point, AOT artifacts).
+calibrated int8-activation detector, the gRPC serving runtime, the
+deployment surfaces (REST, the runtime's entry point, AOT artifacts), and
+RetinaFace training.
 
 Run from the root of a checkout, with one card:
 
@@ -208,14 +209,36 @@ and the last line is never printed):
      against eager detect b8 (CUDA events); then each kernel's custom op
      against its direct ctypes wrapper from Python, in turns (the kernels
      line's ``python_ms`` and ``wrapper_python_ms``);
+ 27. training (parallel/, tools/train_detector.py), TF32 off: (a) the mnet
+     at 640, b8, max_faces 32 on 40 JPEG scenes the phase writes (the
+     fixture face at known boxes, with the landmarks the trained detector
+     reads on it) through DetectionDataLoader to the card; 3 AdamW steps
+     on the card, each from the CPU's state before it, against the CPU's
+     (loss within 1e-5, BatchNorm buffers within 1e-5), the card's own 3
+     steps (params within Adam's bound of 2 x 3 x 1.01 lr), and at b2 the
+     card's float32 gradients and loss no farther from float64 on the CPU
+     than 3x the CPU's float32; (b) remat against no remat (loss within
+     1e-6, buffers updated once, peak memory of each) and one bf16
+     autocast step (loss within 1e-1 of float32's); (c) the R50: 3 steps
+     at b8 on the card, one at b1 against the CPU as in (a); (d)
+     save_train_state, restore_train_state into a fresh Trainer, and the
+     next step torch.equal to continuing in memory (deterministic
+     algorithms); (e) ``python -m rs_face_detection_tpu_torch.tools.
+     train_detector`` as a child for 20 steps with validation every 10 and
+     the train state saved, then resumed to 24; (f) its best-val export and
+     the R50 of (c) as registry .npz files through detect_batch, counted (K1
+     2, K2 1); (g) ms per step and img/s at b8 for both (remat off and on),
+     the step split into forward, loss, backward and optimizer, peak
+     memory, and one profiled step's busy, wall, idle share and top
+     kernels;
 then a JSON line of the kernels, with each one's bound on the card, its
 time on the device as ``ms`` and from Python as ``python_ms`` (through
 its custom op; ``wrapper_python_ms`` through the wrapper alone), and
 {"ok": true, "device": ...} last.
 Every count a phase checks is set to 0 just before its path runs.  The
 main paths (phases 5, 9, 15, 18, each counted run of 22, (a)-(c) of 23,
-(a)-(c) of 24, (a)+(b) of 25, (a) of 26 and the
-loaded programs' calls of 26)
+(a)-(c) of 24, (a)+(b) of 25, (a) of 26, the
+loaded programs' calls of 26 and (f) of 27)
 set all four kernels' counts to 0 and read all four after, and the kernels
 line reports exactly those reads.
 
@@ -2679,6 +2702,460 @@ def deployment_phase(dev, card, reg, p26):
     return {"http": http_counts, "aot": aot_counts, "op_python_ms": op_ms}
 
 
+def training_scenes(rng, face, root, n, lm_rel, h=480, w=640):
+    """n JPEG scenes of make_frames' kind under ``root``/s/: the fixture face
+    pasted at known boxes (40-240 px) with its landmarks ``lm_rel``
+    (fractions of the face square), and their RetinaFace label.txt, whose
+    path it returns."""
+    import cv2
+    import numpy as np
+
+    os.makedirs(os.path.join(root, "s"), exist_ok=True)
+    lines = []
+    cells = [(0, 0), (w // 2, 0), (0, h // 2), (w // 2, h // 2)]
+    for i in range(n):
+        img = gradient(rng, h, w)
+        rel = f"s/im{i:03d}.jpg"
+        lines.append(f"# {rel}")
+        for k in rng.permutation(4)[: int(rng.integers(1, 4))]:
+            cx, cy = cells[k]
+            s = int(rng.integers(40, h // 2 + 1))
+            x = cx + int(rng.integers(0, w // 2 - s + 1))
+            y = cy + int(rng.integers(0, h // 2 - s + 1))
+            paste_face(img, face, x, y, s)
+            pts = np.asarray([x, y], np.float64) + lm_rel * s
+            lines.append(f"{x} {y} {s} {s} " + " ".join(f"{px:.2f} {py:.2f} 0.0" for px, py in pts) + " 1.0")
+        cv2.imwrite(os.path.join(root, rel), np.clip(img, 0, 255).astype(np.uint8))
+    path = os.path.join(root, "label.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def step_parts_ms(trainer, state, batch, steps=5):
+    """Device ms of a train step's parts by CUDA events around each, the
+    median over ``steps`` steps after one warm-up: forward, flatten + loss,
+    backward, and the AdamW update."""
+    import statistics
+
+    import torch
+
+    b = trainer.prepare(batch)
+    model, opt = state.model, state.optimizer
+    parts = {"forward": [], "loss": [], "backward": [], "optimizer": []}
+    for i in range(steps + 1):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        out = trainer.forward(model, b.images)
+        ev[1].record()
+        loss = trainer.loss(out, b)[0].mean()
+        ev[2].record()
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        torch.cuda.synchronize()
+        if i:
+            for k, (a, z) in zip(parts, zip(ev, ev[1:])):
+                parts[k].append(a.elapsed_time(z))
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
+def step_profile(fn, top=5):
+    """torch.profiler over one call of ``fn`` (after one warm-up): the
+    device's busy ms (the sum of its kernels' times), the call's wall ms,
+    the number of device ops and the ``top`` kernels by time."""
+    from collections import defaultdict
+
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name, n_ops = defaultdict(float), 0
+    for event in prof.events():
+        if event.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[event.name] += event.time_range.elapsed_us() / 1e3
+            n_ops += 1
+    busy = sum(by_name.values())
+    return busy, wall, n_ops, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+
+
+def peak_step_mb(fn):
+    """Peak device memory (MB) over one call of ``fn``, and the memory held
+    before it."""
+    import torch
+
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20, held / 2**20
+
+
+def loss_and_grads(trainer, model, batch, dtype):
+    """The train step's mean loss and gradients on a copy of ``model`` in
+    ``dtype`` on the trainer's device (the model and its BatchNorm buffers
+    stay as they are): (loss, {name: gradient as float64 on the CPU})."""
+    import copy
+
+    from rs_face_detection_tpu_torch.parallel.train import TrainBatch
+
+    m = copy.deepcopy(model).to(device=trainer.device, dtype=dtype).train()
+    b = trainer.prepare(batch)
+    b = TrainBatch(*(t.to(dtype) if t.is_floating_point() else t for t in b))
+    loss = trainer.loss(trainer.forward(m, b.images), b)[0].mean()
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().double().cpu() for n, p in m.named_parameters()}
+
+
+def grad_rel_l2(grads, exact):
+    """||grads - exact|| / ||exact|| over every leaf at once."""
+    num = sum(float(((grads[n] - g) ** 2).sum()) for n, g in exact.items())
+    den = sum(float((g ** 2).sum()) for g in exact.values())
+    return (num / den) ** 0.5
+
+
+def training_phase(dev, rng, face, card, det_sd, size=640, batch=BATCH):
+    """Phase 27: RetinaFace training on the card (parallel/, tools/
+    train_detector.py), TF32 off: (a) the mnet on a dataset the phase
+    writes, card against CPU; (b) remat; (c) the R50; (d) a train-state
+    checkpoint resumed; (e) the entry point as a child process, then
+    resumed; (f) the trained checkpoints through detect_batch, counted; (g)
+    timings.  Returns the launch counts of (f), the only part that launches
+    a kernel in this process (training runs none)."""
+    import copy
+    import shutil
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from rs_face_detection_tpu_torch.configs import FaceDetectionConfig
+    from rs_face_detection_tpu_torch.kernels import build
+    from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch
+    from rs_face_detection_tpu_torch.parallel.checkpoint import latest_step, restore_train_state, save_train_state
+    from rs_face_detection_tpu_torch.parallel.data import DetectionDataLoader, parse_retinaface_label
+    from rs_face_detection_tpu_torch.parallel.train import TrainBatch, Trainer
+    from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    lr = 1e-3
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="train-", dir=build.BUILD_DIR)
+
+    def copy_state(src, dst):
+        """dst's module and optimizer set to src's (any devices)."""
+        dst.model.load_state_dict(src.model.state_dict())
+        # A copy: on one device load_state_dict would share src's moments.
+        dst.optimizer.load_state_dict(copy.deepcopy(src.optimizer.state_dict()))
+        dst.step = src.step
+
+    def grad_check(trainer_dev, trainer_cpu, model, b_dev, b_cpu):
+        """The loss and the gradients of one batch at ``model``'s weights: on
+        the card in float32, on the CPU in float32 and float64; the
+        relative errors against float64 of the card's gradients (L2) and
+        the CPU float32's, and of the card's loss and the CPU float32's."""
+        l64, g64 = loss_and_grads(trainer_cpu, model, b_cpu, torch.float64)
+        l_dev, g_dev = loss_and_grads(trainer_dev, model, b_dev, torch.float32)
+        l32, g32 = loss_and_grads(trainer_cpu, model, b_cpu, torch.float32)
+        return grad_rel_l2(g_dev, g64), grad_rel_l2(g32, g64), abs(l_dev / l64 - 1), abs(l32 / l64 - 1)
+
+    def compare(card_state, cpu_state):
+        """(gradient error over max|g|, running_var max relative error,
+        running_mean max abs error, params max abs error)."""
+        g_cpu = {n: p.grad for n, p in cpu_state.model.named_parameters()}
+        scale = max(float(g.abs().max()) for g in g_cpu.values())
+        g_err = max(float((p.grad.cpu() - g_cpu[n]).abs().max()) for n, p in card_state.model.named_parameters())
+        bufs = dict(cpu_state.model.named_buffers())
+        var_err = max(float(((b.cpu() - bufs[n]).abs() / bufs[n].abs()).max())
+                      for n, b in card_state.model.named_buffers() if n.endswith("running_var"))
+        mean_err = max(float((b.cpu() - bufs[n]).abs().max())
+                       for n, b in card_state.model.named_buffers() if n.endswith("running_mean"))
+        params = dict(cpu_state.model.named_parameters())
+        p_err = max(float((p.detach().cpu() - params[n].detach()).abs().max())
+                    for n, p in card_state.model.named_parameters())
+        return g_err / scale, var_err, mean_err, p_err
+
+    try:
+        # (a) The dataset: 40 scenes whose faces carry the landmarks the
+        # trained 640 detector reads on the fixture face.
+        family = "retinaface_mobilenet025"
+        probe = gradient(rng, 480, 640)
+        paste_face(probe, face, 220, 140, 200)
+        probe_det = RetinaFaceDetection(FaceDetectionConfig(), weights.load_model(family, det_sd), device=cpu)
+        found, kps = probe_det(np.clip(probe, 0, 255).astype(np.uint8))
+        check(len(found) >= 1, "phase 27: the trained detector found no face on the probe")
+        lm_rel = (kps[0] - np.asarray([220.0, 140.0])) / 200.0
+        labels = training_scenes(rng, face, root, 40, lm_rel)
+        examples = parse_retinaface_label(labels)
+        check(len(examples) == 40 and sum(e.boxes.shape[0] for e in examples) >= 40, "phase 27: bad labels")
+        cfg = FaceDetectionConfig(image_size=(size, size))
+        t0 = time.perf_counter()
+        with DetectionDataLoader(examples, root, image_size=(size, size), batch_size=batch, max_faces=32,
+                                 seed=SEED) as loader:
+            it = loader.batches(epochs=None, device=dev)
+            batches = [next(it) for _ in range(3)]
+        load_s = time.perf_counter() - t0
+        check(all(t.device.type == dev.type for b in batches for t in b), "phase 27: a batch is not on the card")
+        cpu_batches = [TrainBatch(*(t.cpu() for t in b)) for b in batches]
+        n_faces = int(sum(int(b.gt_valid.sum()) for b in cpu_batches))
+
+        trainer = Trainer(cfg, learning_rate=lr, device=dev)
+        trainer_cpu = Trainer(cfg, learning_rate=lr, device=cpu)
+        step, step_cpu = trainer.make_train_step(), trainer_cpu.make_train_step()
+        free = trainer.init_state(seed=SEED)      # the card's own 3 steps
+        ref = trainer_cpu.init_state(seed=SEED)   # the CPU's 3 steps
+        forced = trainer.init_state(seed=SEED)    # each step from the CPU's state before it
+        rows = []
+        for i in range(3):
+            copy_state(ref, forced)
+            forced, m_forced = step(forced, batches[i])
+            ref, m_ref = step_cpu(ref, cpu_batches[i])
+            free, m_free = step(free, batches[i])
+            g_err, var_err, mean_err, _ = compare(forced, ref)
+            rows.append((float(m_forced["loss"]), float(m_ref["loss"]), float(m_free["loss"]), g_err, var_err,
+                         mean_err))
+            loss_rel = abs(rows[-1][0] / rows[-1][1] - 1)
+            check(loss_rel <= 1e-5, f"phase 27 (a) step {i + 1}: card loss {rows[-1][0]} vs CPU {rows[-1][1]}")
+            check(var_err <= 1e-5 and mean_err <= 1e-5,
+                  f"phase 27 (a) step {i + 1}: BatchNorm buffers var {var_err} mean {mean_err}")
+            check(abs(rows[-1][2] / rows[-1][1] - 1) <= 5e-2, f"phase 27 (a) step {i + 1}: free-running loss")
+        _, _, _, p_err = compare(free, ref)
+        adam_bound = 2 * 3 * 1.01 * lr  # two runs, 3 steps, |m^|/sqrt(v^) <= 1.004 at counts 1-3
+        check(p_err <= adam_bound, f"phase 27 (a): params {p_err} > {adam_bound}")
+        # The gradients against float64 on the CPU, at b2 from the seeded
+        # weights.  Float32 on the card and on the CPU both part from it by
+        # rounding that the stem makes large: its kernel's gradient sums raw
+        # 0-255 pixels times BatchNorm input gradients that sum to 0 per
+        # channel, so most digits cancel.  The card must be as close as the
+        # CPU's float32 is, within a factor 3.
+        g_state = trainer_cpu.init_state(seed=SEED)
+        two = [TrainBatch(*(t[:2] for t in b)) for b in (batches[0], cpu_batches[0])]
+        a_card, a_cpu, a_loss, a_loss32 = grad_check(trainer, trainer_cpu, g_state.model, *two)
+        check(a_card <= 3 * a_cpu + 1e-6 and a_loss <= 3 * a_loss32 + 1e-6,
+              f"phase 27 (a): card gradients {a_card} from float64 (CPU float32 {a_cpu}), loss {a_loss} ({a_loss32})")
+        del g_state
+        print(
+            f"phase 27 (a) mnet {size}x{size} b{batch} max_faces 32, {len(examples)} JPEG scenes through "
+            f"DetectionDataLoader to the card ({n_faces} faces in 3 batches, {load_s:.2f} s); 3 AdamW steps, each "
+            f"from the CPU's state before it: loss card/CPU "
+            + ", ".join(f"{a:.6f}/{b:.6f}" for a, b, *_ in rows)
+            + f" (rel <= 1e-5: max {max(abs(a / b - 1) for a, b, *_ in rows):.3g}), gradients card against CPU "
+            f"max {max(r[3] for r in rows):.3g} x max|g| (no bound: see below), running_var rel "
+            f"{max(r[4] for r in rows):.3g} "
+            f"(<= 1e-5), running_mean abs {max(r[5] for r in rows):.3g} (<= 1e-5); run free on the card: loss "
+            + ", ".join(f"{r[2]:.6f}" for r in rows)
+            + f" (rel to the CPU's <= 5e-2), params after 3 steps max abs {p_err:.3g} (<= {adam_bound:.4g}: Adam "
+            f"moves each by <= 1.004 lr a step, and float32 rounding signs the near-zero gradients); at b2 from "
+            f"the seeded weights against float64 on the CPU: gradients rel L2 card {a_card:.3g}, CPU float32 "
+            f"{a_cpu:.3g}, loss card {a_loss:.3g}, CPU float32 {a_loss32:.3g} (card <= 3x CPU) {card}"
+        )
+
+        # (b) remat against no remat, one step from the same weights.
+        held_mb, res = {}, {}
+        for remat in (False, True):
+            tr = Trainer(cfg, learning_rate=lr, remat=remat, device=dev)
+            st = tr.init_state(seed=SEED)
+            st_step = tr.make_train_step()
+            out = {}
+
+            def one_step(st=st, st_step=st_step, out=out):
+                out["metrics"] = st_step(st, batches[0])[1]
+
+            held_mb[remat] = peak_step_mb(one_step)
+            res[remat] = (float(out["metrics"]["loss"]), st)
+        (loss0, st0), (loss1, st1) = res[False], res[True]
+        bufs0 = dict(st0.model.named_buffers())
+        remat_var = max(float(((b - bufs0[n]).abs() / bufs0[n].abs()).max())
+                        for n, b in st1.model.named_buffers() if n.endswith("running_var"))
+        remat_mean = max(float((b - bufs0[n]).abs().max())
+                         for n, b in st1.model.named_buffers() if n.endswith("running_mean"))
+        params0 = dict(st0.model.named_parameters())
+        remat_p = max(float((p - params0[n]).detach().abs().max()) for n, p in st1.model.named_parameters())
+        check(abs(loss1 / loss0 - 1) <= 1e-6, f"phase 27 (b): remat loss {loss1} vs {loss0}")
+        check(remat_var <= 1e-5 and remat_mean <= 1e-5, f"phase 27 (b): remat buffers {remat_var} {remat_mean}")
+        check(remat_p <= 2 * 1.01 * lr, f"phase 27 (b): remat params {remat_p}")
+        # bf16: autocast over float32 parameters, one step from the same weights.
+        bf = Trainer(cfg, learning_rate=lr, dtype=torch.bfloat16, device=dev)
+        bf_state, bf_metrics = bf.make_train_step()(bf.init_state(seed=SEED), batches[0])
+        bf_loss = float(bf_metrics["loss"])
+        check(abs(bf_loss / loss0 - 1) <= 1e-1 and all(p.dtype == torch.float32 and bool(torch.isfinite(p).all())
+                                                       for p in bf_state.model.parameters()),
+              f"phase 27 (b): bf16 loss {bf_loss} against float32 {loss0}")
+        del res, st0, st1, bf_state
+        print(
+            f"phase 27 (b) remat=True against remat=False, one step at b{batch}: loss {loss1:.6f}/{loss0:.6f} (rel "
+            f"<= 1e-6), BatchNorm buffers updated once (running_var rel {remat_var:.3g}, running_mean abs "
+            f"{remat_mean:.3g}, <= 1e-5), params max abs {remat_p:.3g} (<= {2 * 1.01 * lr:.4g}); peak memory of the "
+            f"step {held_mb[False][0]:.1f} MB without remat, {held_mb[True][0]:.1f} MB with ({held_mb[False][1]:.1f} "
+            f"MB held before it); bf16 autocast: loss {bf_loss:.6f} (rel to float32 {abs(bf_loss / loss0 - 1):.3g} "
+            f"<= 1e-1: bf16 keeps 8 bits), float32 parameters finite {card}"
+        )
+
+        # (c) The R50: 3 steps on the card; one step card against CPU at b2
+        # from the same weights.
+        r50_cfg = FaceDetectionConfig(backbone="resnet50", image_size=(size, size))
+        r50 = Trainer(r50_cfg, learning_rate=lr, device=dev)
+        r50_state = r50.init_state(seed=SEED)
+        r50_step = r50.make_train_step()
+        r50_losses = []
+        for b in batches:
+            r50_state, m = r50_step(r50_state, b)
+            r50_losses.append(float(m["loss"]))
+        check(all(np.isfinite(r50_losses)), f"phase 27 (c): R50 losses {r50_losses}")
+        small = [TrainBatch(*(t[:1] for t in b)) for b in (batches[0], cpu_batches[0])]
+        r50_cpu = Trainer(r50_cfg, learning_rate=lr, device=cpu)
+        rc, rg = r50_cpu.init_state(seed=SEED), r50.init_state(seed=SEED)
+        t0 = time.perf_counter()
+        r_card, r_cpu32, r_loss64, r_loss32 = grad_check(r50, r50_cpu, rc.model, *small)
+        rc, mc = r50_cpu.make_train_step()(rc, small[1])
+        cpu_s = time.perf_counter() - t0
+        rg, mg = r50_step(rg, small[0])
+        _, r_var, r_mean, _ = compare(rg, rc)
+        r_loss = abs(float(mg["loss"]) / float(mc["loss"]) - 1)
+        check(r_loss <= 1e-5 and r_var <= 1e-5 and r_mean <= 1e-5 and r_card <= 3 * r_cpu32 + 1e-6
+              and r_loss64 <= 3 * r_loss32 + 1e-6,
+              f"phase 27 (c): R50 card vs CPU loss {r_loss} var {r_var} mean {r_mean}, grads {r_card} from float64")
+        del rc, rg
+        print(
+            f"phase 27 (c) R50 {size}x{size}: 3 steps at b{batch} on the card, loss "
+            + ", ".join(f"{v:.6f}" for v in r50_losses)
+            + f"; one step at b1 card against CPU ({cpu_s:.1f} s on the CPU): loss {float(mg['loss']):.6f}/"
+            f"{float(mc['loss']):.6f} (rel {r_loss:.3g} <= 1e-5), running_var rel {r_var:.3g} (<= 1e-5), "
+            f"running_mean abs {r_mean:.3g} (<= 1e-5); against float64 on the CPU: gradients rel L2 card "
+            f"{r_card:.3g}, CPU float32 {r_cpu32:.3g}, loss card {r_loss64:.3g}, CPU float32 {r_loss32:.3g} (card "
+            f"<= 3x CPU) {card}"
+        )
+
+        # (d) Save the card's mnet state, restore it into a fresh Trainer,
+        # and take the next step both ways, deterministic algorithms on.
+        ckpt_dir = os.path.join(root, "state")
+        save_train_state(ckpt_dir, free)
+        resumed = restore_train_state(ckpt_dir, Trainer(cfg, learning_rate=lr, device=dev).init_state(seed=SEED + 1))
+        same = [torch.equal(a, b) for a, b in zip(free.model.state_dict().values(), resumed.model.state_dict().values())]
+        opt_a, opt_b = free.optimizer.state_dict()["state"], resumed.optimizer.state_dict()["state"]
+        same += [torch.equal(v, opt_b[i][k]) for i, st in opt_a.items() for k, v in st.items()]
+        check(all(same) and resumed.step == free.step == 3, "phase 27 (d): the restored state differs")
+        det_before = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            free, m_mem = step(free, batches[0])
+            resumed, m_res = trainer.make_train_step()(resumed, batches[0])
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(det_before)
+        after_same = all(torch.equal(a, b) for a, b in zip(free.model.state_dict().values(),
+                                                           resumed.model.state_dict().values()))
+        check(torch.equal(m_mem["loss"], m_res["loss"]) and after_same,
+              "phase 27 (d): the resumed step differs from continuing in memory")
+        print(
+            f"phase 27 (d) save_train_state at step 3 ({latest_step(ckpt_dir)}), restore_train_state into a fresh "
+            f"Trainer: {len(same)} tensors torch.equal; step 4 resumed and in memory (deterministic algorithms): "
+            f"loss {float(m_res['loss']):.6f} torch.equal, every parameter and buffer torch.equal {card}"
+        )
+
+        # (e) The entry point as a child process: 20 steps with validation
+        # every 10 and the train state saved, then resumed to 24.
+        out_npz = os.path.join(root, "face_detection_retina.npz")
+        child_dir = os.path.join(root, "child")
+        base = [sys.executable, "-m", "rs_face_detection_tpu_torch.tools.train_detector", "--labels", labels,
+                "--images", root, "--out", out_npz, "--size", f"{size}x{size}", "--batch", str(batch),
+                "--log-every", "10", "--val-labels", labels, "--val-max-images", "8", "--eval-every", "10",
+                "--checkpoint-dir", child_dir, "--save-every", "10"]
+        runs = []
+        for steps in (20, 24):
+            t0 = time.perf_counter()
+            proc = subprocess.run(base + ["--steps", str(steps)], cwd=HERE, capture_output=True, text=True,
+                                  timeout=300)
+            runs.append((time.perf_counter() - t0, proc))
+            if proc.returncode != 0:
+                print(proc.stdout[-3000:] + proc.stderr[-3000:], file=sys.stderr)
+            check(proc.returncode == 0, f"phase 27 (e): the entry point exited {proc.returncode}")
+        first, second = runs[0][1].stdout, runs[1][1].stdout
+        check("step 10: val AP" in first and "step 20: val AP" in first, "phase 27 (e): no validation")
+        check("resumed from step 20" in second and "step 24: val AP" in second, "phase 27 (e): no resume")
+        check(latest_step(child_dir) == 24 and os.path.exists(out_npz) and os.path.exists(out_npz + ".bestap.json"),
+              "phase 27 (e): checkpoints or export missing")
+        logged = [ln for ln in (first + second).splitlines() if ln.startswith("step ")]
+        print(
+            f"phase 27 (e) python -m rs_face_detection_tpu_torch.tools.train_detector --size {size}x{size} --batch "
+            f"{batch} --steps 20 --eval-every 10 --checkpoint-dir ..., then --steps 24: exit 0 twice in "
+            f"{runs[0][0]:.1f} s and {runs[1][0]:.1f} s; " + "; ".join(logged) + f" {card}"
+        )
+
+        # (f) The trained checkpoints through detect_batch on the card: the
+        # entry point's export (mnet) and the R50 of (c), counted.
+        r50_npz = os.path.join(root, "r50.npz")
+        weights.save_flax_checkpoint(r50_npz, r50.family, r50_state.export_state_dict())
+        frames = [cv2.imread(os.path.join(root, e.rel_path)) for e in examples[:batch]]
+        canvases, scales = letterbox_u8_batch(frames, size, size, dev)
+        zero_counts()
+        detected = {}
+        for name, c, npz in (("mnet", cfg, out_npz), ("R50", r50_cfg, r50_npz)):
+            fam = f"retinaface_{c.backbone}"
+            det = RetinaFaceDetection(c, weights.load_model(fam, weights.state_dict_from_jax(fam, npz)), device=dev)
+            res_det = det.detect_batch(canvases, torch.tensor(scales))
+            torch.cuda.synchronize()
+            check(res_det.det.shape == (batch, c.max_detections, 5) and bool(torch.isfinite(res_det.det).all()),
+                  f"phase 27 (f): {name} detections")
+            detected[name] = int(res_det.count.sum())
+        counts = read_counts()
+        check(counts["nms_mask"] == 2 and counts["fused_stem"] == 1
+              and counts["flash_attention"] == counts["int8_matmul"] == 0, f"phase 27 (f): launches {counts}")
+        print(
+            f"phase 27 (f) the entry point's best-val-AP export (mnet) and the R50 of (c), each written as the "
+            f"registry .npz and loaded back, detect_batch b{batch} on the card: {detected['mnet']} and "
+            f"{detected['R50']} faces; launches {counts} (K1 1 + 1, K2 1) {card}"
+        )
+
+        # (g) Timings, TF32 off: ms per step (CUDA events, 5 windows), the
+        # step's parts, peak memory and one profiled step.
+        del free, resumed, forced, ref, r50_state
+        torch.cuda.empty_cache()
+        for name, c, iters in (("mnet", cfg, 5), ("R50", r50_cfg, 3)):
+            for remat in (False, True):
+                tr = Trainer(c, learning_rate=lr, remat=remat, device=dev)
+                st = tr.init_state(seed=SEED)
+                st_step = tr.make_train_step()
+
+                def one(st=st, st_step=st_step):
+                    st_step(st, batches[0])
+
+                for _ in range(2):
+                    one()
+                t = cuda_ms(one, iters)
+                peak, held = peak_step_mb(one)
+                parts = step_parts_ms(tr, st, batches[0])
+                busy, wall, n_ops, top = step_profile(one)
+                print(
+                    f"phase 27 (g) {name} train step b{batch} at {size}x{size}, remat={remat}: {fmt(t)}/step, "
+                    f"{batch * 1000 / t[0]:.1f} img/s; parts forward {parts['forward']:.3f}, loss "
+                    f"{parts['loss']:.3f}, backward {parts['backward']:.3f}, optimizer {parts['optimizer']:.3f} ms; "
+                    f"peak {peak:.1f} MB ({held:.1f} MB held); one profiled step: device busy {busy:.3f} of "
+                    f"{wall:.3f} ms wall, idle share {1.0 - busy / wall:.3f}, {n_ops} device ops {card}"
+                )
+                if not remat:
+                    for kname, ms in top:
+                        print(f"phase 27 (g)     {100 * ms / busy:5.1f}%  {ms:.4f} ms  {kname[:100]}")
+                del st, tr
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 27 training: {time.perf_counter() - t_phase:.1f} s in all; launches {counts} {card}")
+    return {"train": counts}
+
+
 def gpu_tests_phase(card):
     """Phase 21: the kernels' own card tests in a subprocess, without
     tests/conftest.py (it imports JAX).  Passes only if pytest exits 0,
@@ -3149,6 +3626,7 @@ def main() -> int:
     by_path.update(serving_phase(dev, card, p25, ekyc, reg))
     deploy = deployment_phase(dev, card, reg, dict(p25, canvas=canvas, real_cand=real_cand, r50_sd=r50_sd))
     by_path.update(http=deploy["http"], aot=deploy["aot"])
+    by_path.update(training_phase(dev, np.random.default_rng(SEED + 27), face, card, det_sd))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")

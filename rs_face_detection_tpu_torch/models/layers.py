@@ -5,15 +5,69 @@ biubug6 RetinaFace key layout (``Sequential(Conv, BN, act)``), so a public
 ``mobilenet0.25_Final.pth`` state_dict loads as it is.  Padding is the torch
 symmetric k//2 the flax code already uses (``torch_padding``), and every
 BatchNorm keeps the flax definition's epsilon of 1e-5.
+
+For training (parallel/train.py) the BatchNorm follows flax's ``nn.BatchNorm``
+(momentum 0.9), and ``remat`` runs a block under ``torch.utils.checkpoint``,
+the counterpart of flax's ``nn.remat``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 BN_EPS = 1e-5
+
+_recompute = threading.local()
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (same keys, same eval forward) whose running
+    statistics follow flax's: in training the batch is normalized with its
+    biased statistics and the buffers take ``0.9 * old + 0.1 * batch`` with
+    the *biased* variance, computed as flax does, E[x^2] - E[x]^2 clipped at 0
+    (``nn.BatchNorm2d`` would take the unbiased one, n/(n-1) larger).  The
+    buffers are not updated while ``remat`` recomputes a block, as flax's
+    ``nn.remat`` updates them once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if not getattr(_recompute, "active", False):
+            with torch.no_grad():
+                xf = x.float()
+                mean = xf.mean(dim=(0, 2, 3))
+                var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_(min=0.0)
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(self.running_mean * keep + mean * self.momentum)
+                self.running_var.copy_(self.running_var * keep + var * self.momentum)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+@contextlib.contextmanager
+def _recomputing():
+    _recompute.active = True
+    try:
+        yield
+    finally:
+        _recompute.active = False
+
+
+def remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` with its activations recomputed on the backward pass
+    instead of saved (flax ``nn.remat``), when the module trains with
+    gradients on; a plain call otherwise."""
+    if not (block.training and torch.is_grad_enabled()):
+        return block(x)
+    return checkpoint(
+        block, x, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing()),
+    )
 
 
 def conv_bn(
@@ -29,7 +83,7 @@ def conv_bn(
     negative_slope None means no activation; 0.0 is a plain ReLU."""
     layers = [
         nn.Conv2d(inp, oup, kernel, stride, kernel // 2, groups=groups, bias=False),
-        nn.BatchNorm2d(oup, eps=BN_EPS),
+        BatchNorm2d(oup, eps=BN_EPS),
     ]
     if negative_slope is not None:
         layers.append(nn.LeakyReLU(negative_slope))

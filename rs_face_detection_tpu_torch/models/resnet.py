@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BN_EPS
+from .layers import BN_EPS, BatchNorm2d, remat
 
 #: Bottleneck blocks per stage.
 STAGES = (3, 4, 6, 3)
@@ -84,16 +84,16 @@ class Bottleneck(nn.Module):
     def __init__(self, inplanes: int, planes: int, stride: int = 1) -> None:
         super().__init__()
         self.conv1 = nn.Conv2d(inplanes, planes, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(planes, eps=BN_EPS)
         self.conv2 = nn.Conv2d(planes, planes, 3, stride, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(planes, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(planes, eps=BN_EPS)
         self.conv3 = nn.Conv2d(planes, planes * 4, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(planes * 4, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(planes * 4, eps=BN_EPS)
         self.downsample = None
         if stride != 1 or inplanes != planes * 4:
             self.downsample = nn.Sequential(
                 nn.Conv2d(inplanes, planes * 4, 1, stride, bias=False),
-                nn.BatchNorm2d(planes * 4, eps=BN_EPS),
+                BatchNorm2d(planes * 4, eps=BN_EPS),
             )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -112,10 +112,11 @@ def space_to_depth_nchw(x: torch.Tensor) -> torch.Tensor:
 
 
 class ResNet50(nn.Module):
-    def __init__(self) -> None:
+    def __init__(self, remat: bool = False) -> None:
         super().__init__()
+        self.remat = remat
         self.conv1 = nn.Conv2d(12, 64, 4, 1, 0, bias=False)
-        self.bn1 = nn.BatchNorm2d(64, eps=BN_EPS)
+        self.bn1 = BatchNorm2d(64, eps=BN_EPS)
         inplanes = 64
         for i, (blocks, planes) in enumerate(zip(STAGES, (64, 128, 256, 512))):
             layer = []
@@ -138,11 +139,17 @@ class ResNet50(nn.Module):
         return F.max_pool2d(F.relu(self.bn1(x)), 3, 2, 1)
 
     def from_pooled(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Stages 1-4 from the pooled stem output: (C3, C4, C5)."""
-        x = self.layer1(x)
-        c3 = self.layer2(x)
-        c4 = self.layer3(c3)
-        return c3, c4, self.layer4(c4)
+        """Stages 1-4 from the pooled stem output: (C3, C4, C5).  ``remat``
+        recomputes each bottleneck on the backward pass (the flax model's)."""
+        x = self._stage(self.layer1, x)
+        c3 = self._stage(self.layer2, x)
+        c4 = self._stage(self.layer3, c3)
+        return c3, c4, self._stage(self.layer4, c4)
+
+    def _stage(self, layer: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+        for block in layer:
+            x = remat(block, x) if self.remat else block(x)
+        return x
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return self.from_pooled(self.stem(x))

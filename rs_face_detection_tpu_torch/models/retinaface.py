@@ -11,6 +11,10 @@ on int8 activations (``quant``), the ResNet-50's s2d stem included.  The output 
 {"score": (B, H, W, A), "bbox": (B, H, W, A*4), "landmark": (B, H, W, A*10)}}
 for strides 8, 16, 32.  Each head's NCHW output is permuted to NHWC before
 any reshape, so rows flatten in (h, w, a) order, the anchor table's order.
+For training (parallel/train.py), ``forward(x, raw=True)`` gives the raw
+(B, H, W, A, 2) class logits as "score", without the softmax, and
+``remat=True`` recomputes the backbone's blocks on the backward pass: the
+flax model's ``raw`` and ``remat``.
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ class _Head(nn.Module):
 
 
 class RetinaFace(nn.Module):
-    def __init__(self, backbone: str = "mobilenet025", num_anchors: int = 2) -> None:
+    def __init__(self, backbone: str = "mobilenet025", num_anchors: int = 2, remat: bool = False) -> None:
         super().__init__()
         if backbone not in _BACKBONES:
             raise ValueError(
@@ -53,7 +57,7 @@ class RetinaFace(nn.Module):
         in_channels, channels, slope = _BACKBONES[backbone]
         self.backbone = backbone
         self.num_anchors = num_anchors
-        self.body = ResNet50() if backbone == "resnet50" else MobileNetV1_025()
+        self.body = ResNet50(remat) if backbone == "resnet50" else MobileNetV1_025(remat)
         self.fpn = FPN(in_channels, channels, slope)
         self.ssh1 = SSH(channels, channels, slope)
         self.ssh2 = SSH(channels, channels, slope)
@@ -74,8 +78,8 @@ class RetinaFace(nn.Module):
         quantize_retinaface): the flax model's ``quant``."""
         return has_int8_activations(self)
 
-    def forward(self, x: torch.Tensor) -> Dict[int, Dict[str, torch.Tensor]]:
-        return self._neck_and_heads(self.body(x))
+    def forward(self, x: torch.Tensor, raw: bool = False) -> Dict[int, Dict[str, torch.Tensor]]:
+        return self._neck_and_heads(self.body(x), raw)
 
     def forward_pooled(self, pooled: torch.Tensor) -> Dict[int, Dict[str, torch.Tensor]]:
         """The network from the pooled (B, 64, H/4, W/4) stem output of the
@@ -84,16 +88,16 @@ class RetinaFace(nn.Module):
             raise ValueError(f"backbone {self.backbone!r} has no s2d stem to start after")
         return self._neck_and_heads(self.body.from_pooled(pooled))
 
-    def _neck_and_heads(self, feats) -> Dict[int, Dict[str, torch.Tensor]]:
+    def _neck_and_heads(self, feats, raw: bool = False) -> Dict[int, Dict[str, torch.Tensor]]:
         pyramid = self.fpn(feats)
         contexts = [ssh(p) for ssh, p in zip((self.ssh1, self.ssh2, self.ssh3), pyramid)]
         out: Dict[int, Dict[str, torch.Tensor]] = {}
         for i, (stride, feat) in enumerate(zip((8, 16, 32), contexts)):
             logits = self.ClassHead[i](feat)
             b, h, w, _ = logits.shape
-            score = torch.softmax(logits.reshape(b, h, w, self.num_anchors, 2), dim=-1)
+            logits = logits.reshape(b, h, w, self.num_anchors, 2)
             out[stride] = {
-                "score": score[..., 1],
+                "score": logits if raw else torch.softmax(logits, dim=-1)[..., 1],
                 "bbox": self.BboxHead[i](feat),
                 "landmark": self.LandmarkHead[i](feat),
             }

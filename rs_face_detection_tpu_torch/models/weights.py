@@ -38,7 +38,8 @@ Int8ActConv2d modules of models/quantized.py: ``weight_q`` (OIHW),
 Public PyTorch checkpoints (biubug6 ``Resnet50_Final.pth`` and the other
 public layouts) load through models/checkpoint_maps.py and
 models/checkpoint_io.py; ``flax_from_state_dict`` is the bridge turned
-round, which writes the JAX package's registry ``.npz``.
+round, which writes the JAX package's registry ``.npz``
+(``save_flax_checkpoint``: the trainer's export).
 """
 
 from __future__ import annotations
@@ -511,6 +512,17 @@ def flax_from_state_dict(mapping: Mapping[str, Tuple], state_dict: Mapping[str, 
     if unused:
         raise ValueError(f"state_dict tensors not mapped: {unused[:8]}")
     return flat
+
+
+def save_flax_checkpoint(path: str, family: str, state_dict: Mapping[str, torch.Tensor]) -> None:
+    """Write a float state_dict of a family as the JAX package's registry
+    .npz (its models/registry.py::save_variables of ``params`` and
+    ``batch_stats`` in flax's layout), which JAX's ``RetinaFaceDetection``
+    and the port's registry both serve: the trainer's export
+    (parallel/train.py::TrainState.export_state_dict)."""
+    from .registry import save_variables
+
+    save_variables(path, flax_from_state_dict(mapping_for(family), state_dict))
 
 
 def init_state(

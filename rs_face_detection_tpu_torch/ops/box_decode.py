@@ -1,8 +1,8 @@
 """Box / landmark delta decoding and clipping on tensors.
 
 Counterpart of rs_face_detection_tpu/ops/box_decode.py (``bbox_pred``,
-``landmark_pred``, ``clip_boxes``, and SCRFD's ``distance2bbox`` and
-``distance2kps``), with the same "+1" width/height convention and operation
+``landmark_pred``, ``clip_boxes``, ``bbox_overlaps``, and SCRFD's
+``distance2bbox`` and ``distance2kps``), with the same "+1" width/height convention and operation
 order.  Every function takes any number of leading batch dimensions.
 """
 
@@ -72,3 +72,18 @@ def distance2bbox(points: torch.Tensor, distances: torch.Tensor) -> torch.Tensor
 def distance2kps(points: torch.Tensor, distances: torch.Tensor) -> torch.Tensor:
     """Decode (..., 5, 2) landmark offsets against (..., 2) anchor centers."""
     return points[..., None, :] + distances
+
+
+def bbox_overlaps(boxes: torch.Tensor, query_boxes: torch.Tensor) -> torch.Tensor:
+    """(..., N, 4) x (..., K, 4) -> (..., N, K) IoU with the "+1" area
+    convention; 0 where the boxes do not intersect.  Leading dimensions
+    broadcast (the anchor table against a batch of ground truth)."""
+    b = boxes[..., :, None, :]
+    q = query_boxes[..., None, :, :]
+    iw = torch.clamp(torch.minimum(b[..., 2], q[..., 2]) - torch.maximum(b[..., 0], q[..., 0]) + 1.0, min=0.0)
+    ih = torch.clamp(torch.minimum(b[..., 3], q[..., 3]) - torch.maximum(b[..., 1], q[..., 1]) + 1.0, min=0.0)
+    inter = iw * ih
+    area_b = (b[..., 2] - b[..., 0] + 1.0) * (b[..., 3] - b[..., 1] + 1.0)
+    area_q = (q[..., 2] - q[..., 0] + 1.0) * (q[..., 3] - q[..., 1] + 1.0)
+    union = area_b + area_q - inter
+    return torch.where(inter > 0.0, inter / union, torch.zeros_like(inter))

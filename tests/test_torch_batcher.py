@@ -19,6 +19,7 @@ import json
 import os
 import sys
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -68,20 +69,33 @@ def assert_same(got, want):
         np.testing.assert_allclose(k, ek, rtol=0, atol=TOL)
 
 
+def join_all(workers, what, timeout_s=120.0):
+    """Join threads within one deadline; fail naming what did not finish."""
+    deadline = time.monotonic() + timeout_s
+    for t in workers:
+        t.join(timeout=max(deadline - time.monotonic(), 0.0))
+    stuck = sum(t.is_alive() for t in workers)
+    assert not stuck, f"{stuck} of {len(workers)} {what} threads did not finish within {timeout_s} s"
+
+
 def burst(batcher, payloads, threads=8):
     futs = [None] * len(payloads)
     start = threading.Barrier(threads)
+    errors = []
 
     def client(worker):
-        start.wait()
-        for i in range(worker, len(payloads), threads):
-            futs[i] = batcher.submit(payloads[i])
+        try:
+            start.wait(timeout=60)
+            for i in range(worker, len(payloads), threads):
+                futs[i] = batcher.submit(payloads[i])
+        except Exception as e:  # noqa: BLE001 - reported by the assert below
+            errors.append(e)
 
     workers = [threading.Thread(target=client, args=(w,)) for w in range(threads)]
     for t in workers:
         t.start()
-    for t in workers:
-        t.join()
+    join_all(workers, "submitting client")
+    assert not errors, f"a submitting client failed: {errors[0]!r}"
     return [f.result(timeout=120) for f in futs]
 
 
@@ -180,8 +194,7 @@ def test_launch_counts_are_exact_under_threads(kernel):
     try:
         for t in workers:
             t.start()
-        for t in workers:
-            t.join()
+        join_all(workers, "counting")
     finally:
         sys.setswitchinterval(switch)
     assert mod.launches == before + per * n
@@ -205,14 +218,13 @@ def test_library_setup_runs_once_before_any_caller(monkeypatch):
         lib.cos.argtypes = [ctypes.c_double]
 
     def first_call():
-        barrier.wait()
+        barrier.wait(timeout=60)
         lib = build.load("standin", setup)
         seen.append(lib.cos(0.0))
 
     workers = [threading.Thread(target=first_call) for _ in range(8)]
     for t in workers:
         t.start()
-    for t in workers:
-        t.join()
+    join_all(workers, "first-call")
     assert len(calls) == 1 and seen == [1.0] * 8
     assert build.load("standin") is calls[0]  # a load without setup keeps the library

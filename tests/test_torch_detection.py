@@ -137,7 +137,8 @@ def test_p10_jax_native_loads_after_a_concurrent_build(tmp_path, monkeypatch):
     try:
         lib = load_jax_native(monkeypatch, timeout_s=30.0)
     finally:
-        writer.join()
+        writer.join(timeout=30)
+    assert not writer.is_alive(), "the writer thread did not finish within 30 s"
     assert lib is not None and lib is jnative._lib and lib._name == str(so)
     assert lib.rsfd_abi_version() == JAX_NATIVE_ABI
 

@@ -253,7 +253,7 @@ def test_http_system_shared_memory(servers):
         status, _, body = _get(port, "/v2/systemsharedmemory/region/httpshm/status")
         assert [r["name"] for r in json.loads(body)] == ["httpshm"]
         # the same region is visible on the protobuf wire (one shm registry)
-        client = TritonWireClient(f"localhost:{grpc_port}")
+        client = TritonWireClient(f"localhost:{grpc_port}", timeout_s=60)
         try:
             assert client.system_shared_memory_status("httpshm")["httpshm"]["byte_size"] == 4096
         finally:
@@ -316,7 +316,7 @@ def _client_verbs(client):
 
 def test_http_client_verbs(servers):
     port, _, _ = servers["port"]
-    client = TritonHTTPClient(port=port)
+    client = TritonHTTPClient(port=port, timeout_s=60)
     assert client.server_live() and client.server_ready()
     assert client.model_ready("face_quality") is True
     assert client.model_ready("nope") is False
@@ -329,12 +329,12 @@ def test_http_client_verbs(servers):
     assert "face_quality" in [m["name"] for m in client.repository_index()]
     assert client.log_settings()["log_info"] is True
     assert client.trace_setting()["trace_level"] == ["OFF"]
-    assert _client_verbs(client) == _client_verbs(TritonHTTPClient(port=servers["jax"][0]))
+    assert _client_verbs(client) == _client_verbs(TritonHTTPClient(port=servers["jax"][0], timeout_s=60))
 
 
 def test_http_client_infer_binary_json_parity(servers):
     port, _, reg = servers["port"]
-    client = TritonHTTPClient(port=port)
+    client = TritonHTTPClient(port=port, timeout_s=60)
     rng = np.random.default_rng(3)
     x = rng.normal(size=(1, 3, 32, 32)).astype(np.float32)
     (bin_out,) = client.infer("face_identification", x)
@@ -342,7 +342,7 @@ def test_http_client_infer_binary_json_parity(servers):
     assert bin_out[0] == json_out[0] == "output"
     np.testing.assert_array_equal(bin_out[2], json_out[2])
     np.testing.assert_array_equal(bin_out[2], _direct(reg, "face_identification", x))
-    (jax_out,) = TritonHTTPClient(port=servers["jax"][0]).infer("face_identification", x)
+    (jax_out,) = TritonHTTPClient(port=servers["jax"][0], timeout_s=60).infer("face_identification", x)
     _close_to_jax(bin_out[2], jax_out[2])
     # requested-output subset on the detection model
     outs = client.infer(DET, rng.normal(size=(1, 3, 64, 64)).astype(np.float32),
@@ -358,7 +358,7 @@ def test_each_client_gets_the_same_answers_from_both_servers(servers, client_cls
     """JAX's TritonHTTPClient against the port's server and the port's
     client against JAX's: the verbs answer as from the client's own
     package, and infer outputs agree within the tolerances above."""
-    jc, pc = client_cls(port=servers["jax"][0]), client_cls(port=servers["port"][0])
+    jc, pc = (client_cls(port=servers[k][0], timeout_s=60) for k in ("jax", "port"))
     assert _client_verbs(pc) == _client_verbs(jc)
     rng = np.random.default_rng(4)
     for name, shape in (("face_quality", (2, 3, 32, 32)), (DET, (1, 3, 64, 64))):

@@ -48,7 +48,8 @@ def test_port_imports_without_jax():
         "pipeline.multiscale", "pipeline.tta", "utils.synthetic", "utils.fixtures", "tools.eval_wider",
         "ops.int8_conv", "runtime.native", "runtime.proto3", "runtime.shm", "runtime.batcher",
         "runtime.repository", "runtime.wire", "runtime.server", "runtime.http", "runtime.__main__",
-        "runtime.aot", "utils.coordinate", "utils.debug",
+        "runtime.aot", "utils.coordinate", "utils.debug", "parallel.train", "parallel.data",
+        "parallel.checkpoint", "tools.train_detector",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]
 
@@ -118,7 +119,7 @@ def test_kernel_card_tests_collect_without_jax():
         "FaceExtraction", "FaceQuality", "FaceQualityAssessment", "FaceAntiSpoofing", "Gallery",
         "DetectionServer", "ModelRegistry", "standard_registry", "default_registry",
         "MultiScaleDetection", "TTADetection", "VideoPipeline", "load_trained_detector", "eval_wider",
-        "quantize_retinaface", "runtime", "export_detector", "load_detector",
+        "quantize_retinaface", "runtime", "export_detector", "load_detector", "Trainer", "train_detector",
     ],
 )
 def test_entry_points_default_to_the_card(entry):
@@ -129,6 +130,7 @@ def test_entry_points_default_to_the_card(entry):
     from rs_face_detection_tpu_torch.models import registry
     from rs_face_detection_tpu_torch.models.retinaface import RetinaFace
     from rs_face_detection_tpu_torch.ops import matching, quantize
+    from rs_face_detection_tpu_torch.parallel import train
     from rs_face_detection_tpu_torch.pipeline import (
         antispoofing,
         detection,
@@ -142,7 +144,7 @@ def test_entry_points_default_to_the_card(entry):
     from rs_face_detection_tpu_torch.runtime import __main__ as runtime_main
     from rs_face_detection_tpu_torch.runtime import aot
     from rs_face_detection_tpu_torch.serving import detection_server
-    from rs_face_detection_tpu_torch.tools import eval_wider
+    from rs_face_detection_tpu_torch.tools import eval_wider, train_detector
     from rs_face_detection_tpu_torch.utils import fixtures
 
     ckpt = os.path.join(REPO, "tests", "fixtures", "trained_mnet64.npz")
@@ -169,6 +171,8 @@ def test_entry_points_default_to_the_card(entry):
         "runtime": lambda: runtime_main.main(["--port", "0", "--http-port", "0"]),
         "export_detector": lambda: aot.export_detector(detection.RetinaFaceDetection()),
         "load_detector": lambda: aot.load_detector(b""),
+        "Trainer": train.Trainer,
+        "train_detector": lambda: train_detector.main(["--labels", ckpt, "--images", REPO, "--out", ckpt]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls()

@@ -131,6 +131,7 @@ def test_concurrent_second_load_keeps_the_first_entry():
         t.start()
     for t in threads:
         t.join(timeout=30)
+    assert not any(t.is_alive() for t in threads), "a load did not finish within 30 s"
     assert len(built) == 2
     kept = reg.get("head")
     assert kept in built

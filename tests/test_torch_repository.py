@@ -204,7 +204,7 @@ def test_repository_ensemble_matches_jax(tmp_path, tiny):
     jrepo.attach_repository_builders(jr, root)
     prepo.attach_repository_builders(pr, root)
     js, ps = jserve(None, jr, port=0), pserve(None, pr, port=0)
-    jc, pc = (TritonWireClient(f"localhost:{s._rsfd_port}") for s in (js, ps))
+    jc, pc = (TritonWireClient(f"localhost:{s._rsfd_port}", timeout_s=60) for s in (js, ps))
     try:
         for c in (jc, pc):
             c.repository_model_load("ens")

@@ -10,9 +10,11 @@ without one it exits non-zero and says so, and serves nothing.
 """
 
 import os
+import queue
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import pytest
@@ -30,6 +32,13 @@ def _start(*args):
     )
 
 
+def _pump(stream, sink):
+    """Each line of ``stream`` into ``sink``, then "" at its end."""
+    for line in iter(stream.readline, ""):
+        sink.put(line)
+    sink.put("")
+
+
 def test_runtime_entrypoint_serves_both_surfaces_on_the_cpu():
     from rs_face_detection_tpu.runtime.server import FacePipelineClient as JClient
     from rs_face_detection_tpu_torch.runtime.http import TritonHTTPClient
@@ -38,10 +47,17 @@ def test_runtime_entrypoint_serves_both_surfaces_on_the_cpu():
 
     proc = _start("--device", "cpu", "--port", "0", "--http-port", "0")
     try:
+        # The child's lines are read on a thread of their own, so that the
+        # deadline holds while the child prints nothing.
+        pending = queue.Queue()
+        threading.Thread(target=_pump, args=(proc.stdout, pending), daemon=True).start()
         lines, port, http_port = [], None, None
-        deadline = time.time() + 120
-        while port is None and time.time() < deadline:
-            line = proc.stdout.readline()
+        deadline = time.monotonic() + 120
+        while port is None:
+            try:
+                line = pending.get(timeout=max(deadline - time.monotonic(), 0.0))
+            except queue.Empty:
+                raise AssertionError(f"server announced no port within 120 s: {''.join(lines)}") from None
             lines.append(line)
             m = re.search(r"KServe-v2 HTTP endpoint on :(\d+)", line)
             if m:
@@ -49,27 +65,27 @@ def test_runtime_entrypoint_serves_both_surfaces_on_the_cpu():
             m = re.search(r"serving on :(\d+)", line)
             if m:
                 port = int(m.group(1))
-            if not line and proc.poll() is not None:
+            if not line:
                 raise AssertionError(f"server exited early: {''.join(lines)}")
         assert port and http_port, f"server never announced its ports: {''.join(lines)}"
         assert "device cpu" in lines[-1]
-        for client in (FacePipelineClient(port=port), JClient(port=port)):
+        for client in (FacePipelineClient(port=port, timeout_s=60), JClient(port=port, timeout_s=60)):
             try:
                 assert client.server_live() is True and client.server_ready() is True
             finally:
                 client.close()
-        wire = TritonWireClient(f"localhost:{port}")
+        wire = TritonWireClient(f"localhost:{port}", timeout_s=60)
         try:
             assert wire.server_live() and wire.server_ready()
         finally:
             wire.close()
-        rest = TritonHTTPClient(port=http_port)
+        rest = TritonHTTPClient(port=http_port, timeout_s=60)
         assert rest.server_live() and rest.server_ready()
         assert rest.server_metadata()["name"] == "rs_face_detection_tpu_torch"
     finally:
         proc.terminate()
         rc = proc.wait(timeout=30)
-    assert rc == 0, proc.stdout.read()
+    assert rc == 0, f"the server exited with {rc}"
 
 
 def test_runtime_entrypoint_refuses_to_serve_without_the_card():

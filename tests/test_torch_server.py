@@ -24,7 +24,9 @@ own ``FacePipelineClient`` talks to both.  Gates (PERF.md section 2):
 """
 
 import os
+import queue
 import threading
+import time
 
 import cv2
 import jax
@@ -111,12 +113,39 @@ def payloads():
     return [jpeg(img) for img in (scene, *ap)]
 
 
+#: Deadline of every RPC, stream and client thread here: a hung server fails
+#: the test instead of holding it.
+RPC_S = 120.0
+
+
+def bounded(fn, what, timeout_s=RPC_S):
+    """fn() on a daemon thread; its result, or a failure naming ``what`` when
+    it has not returned within ``timeout_s`` (a stream has no deadline of
+    its own)."""
+    out = queue.Queue()
+
+    def run():
+        try:
+            out.put((True, fn()))
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            out.put((False, e))
+
+    threading.Thread(target=run, daemon=True).start()
+    try:
+        ok, value = out.get(timeout=timeout_s)
+    except queue.Empty:
+        pytest.fail(f"{what} did not finish within {timeout_s} s")
+    if not ok:
+        raise value
+    return value
+
+
 @pytest.fixture(scope="module")
 def servers():
     j, p = face_registries()
     jpipe, ppipe = pipelines(j, p)
     js, ps = jserve(jpipe, j, port=0), pserve(ppipe, p, port=0)
-    jc, pc = FacePipelineClient("localhost", js._rsfd_port), FacePipelineClient("localhost", ps._rsfd_port)
+    jc, pc = (FacePipelineClient("localhost", s._rsfd_port, timeout_s=RPC_S) for s in (js, ps))
     yield {"jax": (js, j, jc, jpipe), "port": (ps, p, pc, ppipe)}
     for c in (jc, pc):
         c.close()
@@ -177,7 +206,8 @@ def test_extract_and_detect_match_jax(servers, payloads):
 
 def test_detect_stream_matches_jax(servers, payloads):
     (_, _, jc, _), (_, _, pc, ppipe) = servers["jax"], servers["port"]
-    got, want = list(pc.detect_stream(payloads)), list(jc.detect_stream(payloads))
+    got = bounded(lambda: list(pc.detect_stream(payloads)), "the port's DetectStream")
+    want = bounded(lambda: list(jc.detect_stream(payloads)), "JAX's DetectStream")
     assert len(got) == len(want) == len(payloads)
     for g, w in zip(got, want):
         assert_detect_close(g, w)
@@ -242,22 +272,29 @@ def test_dynamic_batching_coalesces(payloads, verb):
     _, p = face_registries()
     ppipe = FacePipeline(PConfig(detection=PDetectionConfig(**DET_KW)), device="cpu", registry=p)
     server = pserve(ppipe, p, port=0, max_workers=8, dynamic_batching=True, batch_delay_ms=50.0)
-    client = FacePipelineClient("localhost", server._rsfd_port)
+    client = FacePipelineClient("localhost", server._rsfd_port, timeout_s=RPC_S)
     try:
         call = getattr(client, verb)
         call(payloads[0])
         outs = [None] * len(payloads)
         barrier = threading.Barrier(len(payloads))
+        errors = []
 
         def one(i):
-            barrier.wait()
-            outs[i] = call(payloads[i])
+            try:
+                barrier.wait(timeout=RPC_S)
+                outs[i] = call(payloads[i])
+            except Exception as e:  # noqa: BLE001 - reported by the assert below
+                errors.append(e)
 
         threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
         for t in threads:
             t.start()
+        deadline = time.monotonic() + 2 * RPC_S
         for t in threads:
-            t.join()
+            t.join(timeout=max(deadline - time.monotonic(), 0.0))
+        assert not any(t.is_alive() for t in threads), f"a {verb} client did not finish within {2 * RPC_S} s"
+        assert not errors, f"a {verb} client failed: {errors[0]!r}"
         if verb == "detect":
             for payload, out in zip(payloads, outs):
                 det, kps = ppipe.face_detection(cv2.imdecode(np.frombuffer(payload, np.uint8), cv2.IMREAD_COLOR))
@@ -302,7 +339,7 @@ def test_ekyc_verify_matches_jax():
     card[20:80, 10:70] = face[(np.arange(60) * 160) // 60][:, (np.arange(60) * 160) // 60]
     selfie = np.ascontiguousarray(face[(np.arange(120) * 160) // 120][:, (np.arange(100) * 160) // 100])
     js, ps = jserve(None, j, port=0, ekyc_pipeline=jekyc), pserve(None, p, port=0, ekyc_pipeline=pekyc)
-    jc, pc = FacePipelineClient("localhost", js._rsfd_port), FacePipelineClient("localhost", ps._rsfd_port)
+    jc, pc = (FacePipelineClient("localhost", s._rsfd_port, timeout_s=RPC_S) for s in (js, ps))
     try:
         for c_img, s_img in ((card, selfie), (selfie, card)):
             cb, sb = jpeg(c_img), jpeg(s_img)

@@ -186,7 +186,7 @@ def test_shm_model_infer_over_the_wire_and_deadline():
     reg.register(preg.ModelSpec("doubler", (4,), "array"), Doubler())
     reg.register(preg.ModelSpec("slow", (1,), "array"), Slow())
     server = serve(None, reg, port=0)
-    client = FacePipelineClient("localhost", server._rsfd_port)
+    client = FacePipelineClient("localhost", server._rsfd_port, timeout_s=120)
     hasty = FacePipelineClient("localhost", server._rsfd_port, timeout_s=0.5)
     try:
         with pshm.SharedRegion.create(key(), 1 << 20) as region:

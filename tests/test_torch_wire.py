@@ -94,7 +94,7 @@ def registries(spec_kw=None):
 def servers():
     j, p = registries()
     js, ps = jserve(None, j, port=0), pserve(None, p, port=0)
-    jc, pc = TritonWireClient(f"localhost:{js._rsfd_port}"), TritonWireClient(f"localhost:{ps._rsfd_port}")
+    jc, pc = TritonWireClient(f"localhost:{js._rsfd_port}", timeout_s=60), TritonWireClient(f"localhost:{ps._rsfd_port}", timeout_s=60)
     yield {"jax": (js, j, jc), "port": (ps, p, pc)}
     for c in (jc, pc):
         c.close()
@@ -289,7 +289,7 @@ def test_error_cases_match(servers):
 def test_statistics_match_after_the_same_traffic():
     j, p = registries()
     js, ps = jserve(None, j, port=0), pserve(None, p, port=0)
-    clients = [TritonWireClient(f"localhost:{s._rsfd_port}") for s in (js, ps)]
+    clients = [TritonWireClient(f"localhost:{s._rsfd_port}", timeout_s=60) for s in (js, ps)]
     try:
         rng = np.random.default_rng(7)
         traffic = [("face_quality", (1, 3, 32, 32)), ("face_quality", (3, 3, 32, 32)), (DET, (1, 3, 64, 64)),
@@ -374,7 +374,7 @@ def test_ensemble_matches_jax_and_f3_names_the_member():
     j, p = ensemble_registries()
     assert p.memory_usage_bytes("ens6") == 0 and p.variables("ens6") == {}
     js, ps = jserve(None, j, port=0), pserve(None, p, port=0)
-    jc, pc = (TritonWireClient(f"localhost:{s._rsfd_port}") for s in (js, ps))
+    jc, pc = (TritonWireClient(f"localhost:{s._rsfd_port}", timeout_s=60) for s in (js, ps))
     try:
         x = np.random.default_rng(0).random((1, 3, 8, 8), np.float32)
         jo, po = (c.model_infer("ens6", x, input_name="IMAGE") for c in (jc, pc))
@@ -419,7 +419,7 @@ def test_dynamic_batching_coalesces():
     spec_kw = {"face_quality": dict(max_batch_size=4, dynamic_batching=True, max_queue_delay_us=50000)}
     _, p = registries(spec_kw)
     server = pserve(None, p, port=0)
-    client = TritonWireClient(f"localhost:{server._rsfd_port}")
+    client = TritonWireClient(f"localhost:{server._rsfd_port}", timeout_s=60)
     try:
         xs = [np.random.default_rng(10 + i).normal(size=(1, 3, 32, 32)).astype(np.float32) for i in range(8)]
         client.model_infer("face_quality", xs[0])
