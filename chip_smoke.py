@@ -3,8 +3,9 @@
 weight-only int8 FaceExtraction, checkpoint serving through the registry,
 offline evaluation and video (multi-scale, TTA, tracking, AP), the
 calibrated int8-activation detector, the gRPC serving runtime, the
-deployment surfaces (REST, the runtime's entry point, AOT artifacts), and
-RetinaFace training.
+deployment surfaces (REST, the runtime's entry point, AOT artifacts),
+RetinaFace training, and the multi-device paths (replica serving, the FSDP2
+Trainer, the tensor-parallel ViT).
 
 Run from the root of a checkout, with one card:
 
@@ -231,6 +232,32 @@ and the last line is never printed):
      the step split into forward, loss, backward and optimizer, peak
      memory, and one profiled step's busy, wall, idle share and top
      kernels;
+ 28. multi-device, TF32 off: (a) ``DetectionServer(mesh=[cuda:0,
+     cuda:0])`` (two replicas, each with its copy and compute streams) and
+     over every card, the trained mnet and the seeded R50 on 3 batches of 8
+     JPEGs, each image against the unsharded server (mnet boxes within
+     1e-3 px, the R50's within 5e-6 of their magnitude, scores 1e-4),
+     counted: K1 once per replica per batch at (4, 128), K2 once per R50
+     replica per batch at (4, 640, 640) (phase 7 holds K2 at that shape);
+     K1 at (4, 128) bit for bit on real candidates;
+     detect_stream img/s against the unsharded server, in turns; (b) one
+     NCCL rank (``initialize_distributed``, ``make_mesh(1)``): the FSDP2
+     Trainer, mnet 640 b8, 3 steps on phase 27's batches, each from the
+     unsharded Trainer's state before it, against the unsharded step
+     (loss and BatchNorm buffers within 1e-5, the gathered gradients
+     within twice the unsharded card step's float32 distance from float64
+     in relative L2),
+     the sharded state resumed bit-equal, ms per step beside the unsharded
+     one; K4 at a tensor-parallel rank's (8, 257, 8, 64) bf16 against its
+     plain version and SDPA on the device; (c) two child ranks that share
+     the card through gloo's collectives on CUDA tensors (NCCL refuses two
+     ranks on one card): the tensor-parallel clip_l14 at tp = 2, f32 and
+     bf16, 24 K4 launches per rank per forward at (8, 257, 8, 64), against
+     the unsharded tower (probabilities within 1e-5 and 1e-2); (d) in the
+     same ranks one data-parallel train step at 640 on the global b8,
+     against the unsharded step (loss and buffers within 1e-5, the
+     gathered gradients no farther from float64 than DP_GRAD_FACTOR times
+     the unsharded step's);
 then a JSON line of the kernels, with each one's bound on the card, its
 time on the device as ``ms`` and from Python as ``python_ms`` (through
 its custom op; ``wrapper_python_ms`` through the wrapper alone), and
@@ -238,9 +265,10 @@ its custom op; ``wrapper_python_ms`` through the wrapper alone), and
 Every count a phase checks is set to 0 just before its path runs.  The
 main paths (phases 5, 9, 15, 18, each counted run of 22, (a)-(c) of 23,
 (a)-(c) of 24, (a)+(b) of 25, (a) of 26, the
-loaded programs' calls of 26 and (f) of 27)
+loaded programs' calls of 26, (f) of 27 and (a) of 28)
 set all four kernels' counts to 0 and read all four after, and the kernels
-line reports exactly those reads.
+line reports exactly those reads; phase 28's ``multi_device`` path adds the
+K4 launches its two ranks count around their forwards of (c).
 
 Frames are composited from tests/fixtures/real_face_crop.npz (the face of
 tests/fixtures/real_face.jpg, box (172, 125, 372, 340), resized to 160x160)
@@ -377,6 +405,11 @@ def graph_ms(fn, reps=20, iters=10):
 
 def fmt(t):
     return f"{t[0]:.4f} ms (min {t[1]:.4f}, max {t[2]:.4f})"
+
+
+def fmt_ms(t):
+    """fmt, or "not measured" for a time a CPU rehearsal did not take."""
+    return "not measured" if t is None else fmt(t)
 
 
 #: Published peaks of one H100 SXM at 700 W: memory rate, f32 rate outside
@@ -560,14 +593,20 @@ def ekyc_phases(dev, rng, face, card):
     # 12. K4 vs plain.  Bounds: f32 2e-5 of max|v| (sums in another order);
     # bf16 1e-2 of max|v|, on the same bf16 inputs (P is rounded to bf16).
     k4_err, k4_lines = 0.0, []
+    # Phase 28's shapes draw from a generator of their own, so that the
+    # draws of the phases after this one stay as they were.
+    tp_shapes, tp_rng = ((8, 257, 8, 64), (4, 257, 16, 64)), np.random.default_rng(SEED + 12)
     for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1e-2)):
         # (1, 257, 16, 64) is what each tower of a verify gives K4.
         # (1, 600, 2, 64): more keys than the 8 stages hold, so K/V stream;
         # (8, 600, 16, 64) streams them again in each of three rounds.
+        # (8, 257, 8, 64): a tensor-parallel rank's heads of the tower at
+        # b8 over two ranks; (4, 257, 16, 64): a data rank's rows.
         for shape in ((8, 257, 16, 64), (1, 257, 16, 64), (2, 17, 2, 32), (1, 1, 16, 64), (3, 197, 12, 64),
-                      (1, 600, 2, 64), (8, 600, 16, 64)):
+                      (1, 600, 2, 64), (8, 600, 16, 64), *tp_shapes):
             b, n, h, d = shape
-            qkv = torch.from_numpy(rng.normal(size=(b, n, 3, h, d)).astype(np.float32)).to(dev, dtype)
+            gen = tp_rng if shape in tp_shapes else rng
+            qkv = torch.from_numpy(gen.normal(size=(b, n, 3, h, d)).astype(np.float32)).to(dev, dtype)
             q, k, v = qkv.unbind(2)  # strided views of the packed tensor
             got = katt.flash_attention_cuda(q, k, v)
             want = attention_plain(q, k, v)
@@ -2830,7 +2869,8 @@ def training_phase(dev, rng, face, card, det_sd, size=640, batch=BATCH):
     checkpoint resumed; (e) the entry point as a child process, then
     resumed; (f) the trained checkpoints through detect_batch, counted; (g)
     timings.  Returns the launch counts of (f), the only part that launches
-    a kernel in this process (training runs none)."""
+    a kernel in this process (training runs none), and its three batches on
+    the card (phase 28 trains on them again)."""
     import copy
     import shutil
     import tempfile
@@ -3153,7 +3193,389 @@ def training_phase(dev, rng, face, card, det_sd, size=640, batch=BATCH):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"phase 27 training: {time.perf_counter() - t_phase:.1f} s in all; launches {counts} {card}")
-    return {"train": counts}
+    return {"train": counts}, batches
+
+
+def multi_rank_child(rank, world, work, device="cuda", tower="clip_l14", size=640):
+    """Phase 28 (c) and (d) in rank ``rank`` of ``world`` processes that share
+    the card through gloo's collectives on CUDA tensors (NCCL refuses two
+    ranks on one card), TF32 off: (c) the tensor-parallel ``tower`` at tp =
+    ``world``, f32 and bf16, each counted forward's K4 launches, rank 0
+    against the unsharded tower on the card; (d) one data-parallel mnet
+    train step at ``size`` on the global batch of BATCH.  Writes its results
+    to ``work``/rank<rank>.json (and rank 0 the step's state to .npz)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from rs_face_detection_tpu_torch.configs import FaceDetectionConfig
+    from rs_face_detection_tpu_torch.kernels import attention as katt
+    from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.models.vit import cast_for_serving
+    import torch.distributed as dist
+
+    from rs_face_detection_tpu_torch.parallel.mesh import make_mesh
+    from rs_face_detection_tpu_torch.parallel.tp import make_tp_vit_fn
+    from rs_face_detection_tpu_torch.parallel.train import Trainer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    # gloo on CUDA tensors: two ranks may share one card, where NCCL refuses them.
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(work, "store"), world_size=world, rank=rank)
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device(device)
+    # device="cpu" rehearses the control flow: nothing is timed there.
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    timed = cuda_ms if cuda else (lambda fn, iters, windows=5: None)
+    res = {"device": str(dev)}
+    sd = weights.init_state(tower, SEED, 2)
+    x = torch.from_numpy(np.random.default_rng(SEED + 28).normal(size=(BATCH, 3, 224, 224)).astype(np.float32))
+    mesh = make_mesh(world, model_parallel=world, device=device)
+    for name in ("f32", "bf16"):
+        model = weights.load_model(tower, sd, softmax=False)
+        if name == "bf16":
+            cast_for_serving(model)
+        fn, sharded = make_tp_vit_fn(model, mesh, device=dev)
+        fn(x)  # warm-up
+        sync()
+        katt.launches = 0
+        logits = fn(x)
+        sync()
+        res[f"k4_{name}"] = katt.launches
+        res[f"local_heads_{name}"] = sharded.transformer.resblocks[0].attn.heads
+        res[f"tp_ms_{name}"] = timed(lambda: fn(x), 2, windows=3)
+        if rank == 0:
+            with torch.no_grad():
+                ref = model.to(dev)(x.to(dev)).float()
+            got = logits.float()
+            res[f"prob_err_{name}"] = float((torch.softmax(got, -1) - torch.softmax(ref, -1)).abs().max())
+            res[f"logit_err_{name}"] = float((got - ref).abs().max())
+            res[f"logit_max_{name}"] = float(ref.abs().max())
+            res[f"finite_{name}"] = bool(torch.isfinite(got).all()) and tuple(got.shape) == (BATCH, 2)
+            res[f"unsharded_ms_{name}"] = timed(lambda: model(x.to(dev)), 2, windows=3)
+        del model, sharded, fn
+        torch.cuda.empty_cache()
+    # (d) one data-parallel train step: each rank its 4 rows of the batch.
+    cfg = FaceDetectionConfig(image_size=(size, size))
+    trainer = Trainer(cfg, learning_rate=1e-3, mesh=make_mesh(world, device=device), device=dev)
+    state = trainer.init_state(seed=SEED)
+    step = trainer.make_train_step()
+    state, metrics = step(state, trainer.make_batch(BATCH, max_faces=32, seed=SEED))
+    res["metrics"] = {k: float(v) for k, v in metrics.items()}
+    exported = state.export_state_dict()
+    # The step's gradients, gathered from the shards (a collective: every rank).
+    exported.update({f"grad/{n}": p.grad.full_tensor().cpu() for n, p in state.model.named_parameters()})
+    batch = trainer.make_batch(BATCH, max_faces=32, seed=SEED + 1)
+    res["step_ms"] = timed(lambda: step(state, batch), 1, windows=3)
+    if rank == 0:
+        np.savez(os.path.join(work, "dp_state.npz"), **{k: v.numpy() for k, v in exported.items()})
+    dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+#: Phase 28 (d): how much farther from float64 the two-rank step's gradients
+#: may be than the unsharded step's (each rank's partial sums of the stem's
+#: gradient cancel across the ranks; 1.04x on an H100 at 640 b8, 0.29x on the
+#: CPU at 160; a BatchNorm backward without its all-reduce gives 36x).
+DP_GRAD_FACTOR = 2
+
+
+def multi_device_phase(dev, card, det_sd, r50_sd, face, train_batches, size=640, tower="clip_l14"):
+    """Phase 28: the multi-device paths on the one card, TF32 off: (a) the
+    DetectionServer split over two replicas on the card and over every card
+    (counted); (b) one NCCL rank: the FSDP2 Trainer over make_mesh(1) against
+    the unsharded Trainer, a sharded checkpoint resumed; (c) and (d) in two
+    ranks sharing the card through gloo: the tensor-parallel clip_l14 and a
+    data-parallel train step.  Returns the counts of (a) plus the K4
+    launches of (c)'s counted forwards."""
+    import shutil
+    import socket
+    import tempfile
+
+    import cv2
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from rs_face_detection_tpu_torch.configs import FaceDetectionConfig
+    from rs_face_detection_tpu_torch.kernels import attention as katt
+    from rs_face_detection_tpu_torch.kernels import build
+    from rs_face_detection_tpu_torch.kernels import nms as knms
+    from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.ops.attention import attention_plain
+    from rs_face_detection_tpu_torch.ops.image import letterbox_u8_batch
+    from rs_face_detection_tpu_torch.ops.nms import nms_mask_plain
+    from rs_face_detection_tpu_torch.parallel.checkpoint import restore_train_state, save_train_state
+    from rs_face_detection_tpu_torch.parallel.mesh import initialize_distributed, make_mesh
+    from rs_face_detection_tpu_torch.parallel.train import Trainer
+    from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
+    from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 28)
+    world = 2
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="multi-", dir=build.BUILD_DIR)
+    procs = []
+    try:
+        # (a) DetectionServer over replicas: 3 batches of 8 JPEGs.
+        jpegs = [cv2.imencode(".jpg", f)[1].tobytes() for f in make_frames(rng, 3 * BATCH, face)]
+        batches = [jpegs[i : i + BATCH] for i in range(0, len(jpegs), BATCH)]
+        base = FaceDetectionConfig(image_size=(size, size))
+        dets = {
+            "mnet": RetinaFaceDetection(base, weights.load_model("retinaface_mobilenet025", det_sd), device=dev),
+            "R50": RetinaFaceDetection(dataclasses.replace(base, backbone="resnet50"),
+                                       weights.load_model("retinaface_resnet50", r50_sd), device=dev),
+        }
+        cards = [torch.device(dev.type, i) for i in range(torch.cuda.device_count())]
+        meshes = {"2 replicas on the card": [dev, dev], f"{len(cards)} card(s)": cards}
+        want, got, faces = {}, {}, 0
+        errs = {name: [0.0, 0.0, 0.0] for name in dets}  # boxes and landmarks, scores, their magnitude
+        for name, det in dets.items():
+            with DetectionServer(det, batch_size=BATCH) as single:
+                want[name] = [single.detect_batch(b) for b in batches]
+            for label, mesh in meshes.items():
+                with DetectionServer(det, batch_size=BATCH, mesh=mesh) as server:
+                    server.detect_batch(batches[0])  # warm-up, before the counted run
+                    torch.cuda.synchronize()
+                    if label == "2 replicas on the card":
+                        zero_counts()
+                    out = [server.detect_batch(b) for b in batches]
+                    torch.cuda.synchronize()
+                    if label == "2 replicas on the card":
+                        got[name] = read_counts()
+                for res_b, ref_b in zip(out, want[name]):
+                    for (gd, gk), (wd, wk) in zip(res_b, ref_b):
+                        check(gd.shape == wd.shape, f"phase 28 (a) {name} {label}: {len(gd)} faces vs {len(wd)}")
+                        if len(wd):
+                            e = errs[name]
+                            e[0] = max(e[0], float(np.abs(gd[:, :4] - wd[:, :4]).max()), float(np.abs(gk - wk).max()))
+                            e[1] = max(e[1], float(np.abs(gd[:, 4] - wd[:, 4]).max()))
+                            e[2] = max(e[2], float(np.abs(wd[:, :4]).max()), float(np.abs(wk).max()))
+                        faces += len(wd)
+        # Bounds: the trained mnet's boxes and landmarks within 1e-3 px; the
+        # seeded R50's within 5e-6 of their magnitude (on seeded weights its
+        # maps are large, and a replica's b4 may take other cuDNN algorithms
+        # than the b8, summing in another order: 8.2e-7 of it measured).
+        r50_bound = 5e-6 * max(1.0, errs["R50"][2])
+        check(errs["mnet"][0] <= 1e-3 and errs["R50"][0] <= r50_bound and max(e[1] for e in errs.values()) <= 1e-4,
+              f"phase 28 (a): boxes and scores {errs} (R50 bound {r50_bound})")
+        n_k1 = got["mnet"]["nms_mask"] + got["R50"]["nms_mask"]
+        check(got["mnet"]["nms_mask"] == got["R50"]["nms_mask"] == 2 * len(batches) and got["mnet"]["fused_stem"] == 0
+              and got["R50"]["fused_stem"] == 2 * len(batches), f"phase 28 (a): launches {got}")
+        counts = {k: got["mnet"][k] + got["R50"][k] for k in got["mnet"]}
+        # K1 bit for bit at a replica's share, (4, 128), on real candidates.
+        canvases, _ = letterbox_u8_batch([cv2.imdecode(np.frombuffer(j, np.uint8), 1) for j in batches[0]],
+                                         size, size, dev)
+        cand = dets["mnet"].candidates(canvases[: BATCH // 2])
+        k1_equal = torch.equal(knms.nms_mask_cuda(cand.boxes, cand.valid, 0.45),
+                               nms_mask_plain(cand.boxes, cand.valid, 0.45))
+        check(k1_equal and tuple(cand.boxes.shape[:2]) == (4, 128), "phase 28 (a): K1 != plain at (4, 128)")
+        rates = {}
+        with DetectionServer(dets["mnet"], batch_size=BATCH) as single, \
+                DetectionServer(dets["mnet"], batch_size=BATCH, mesh=[dev, dev]) as split:
+            for label, server in (("unsharded", single), ("2 replicas", split), ("2 replicas", split),
+                                  ("unsharded", single)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n_out = sum(len(b) for b in server.detect_stream(iter(jpegs)))
+                rates.setdefault(label, []).append(len(jpegs) / (time.perf_counter() - t0))
+                check(n_out == len(jpegs), "phase 28 (a): detect_stream lost frames")
+        print(
+            f"phase 28 (a) DetectionServer(mesh=[cuda:0, cuda:0]) (two replicas, each with its copy and compute "
+            f"streams) and over {len(cards)} card(s), trained 640 mnet and seeded R50, 3 batches of 8 JPEGs: "
+            f"per image against the unsharded server {faces} faces, counts equal, boxes and landmarks max err mnet "
+            f"{errs['mnet'][0]:.3g} px (<= 1e-3), R50 {errs['R50'][0]:.3g} px (<= 5e-6 of their max "
+            f"{errs['R50'][2]:.4g}), scores {max(e[1] for e in errs.values()):.3g} (<= 1e-4); counted run on two replicas: K1 {n_k1} launches (once per "
+            f"replica per batch, at (4, 128)), K2 {counts['fused_stem']} (R50: once per replica per batch, at (4, "
+            f"{size}, {size})); K1 at (4, 128) on real candidates torch.equal to plain; detect_stream mnet b8 over 24 "
+            f"JPEGs: unsharded {rates['unsharded'][0]:.1f} and {rates['unsharded'][1]:.1f} img/s, two replicas "
+            f"{rates['2 replicas'][0]:.1f} and {rates['2 replicas'][1]:.1f} img/s {card}"
+        )
+
+        # The scale of float32 rounding in the gradients, which (b) and (d)
+        # are held to: the unsharded step's gradients on the card at the
+        # seeded init on (d)'s batch, against float64 on the CPU (raw 0-255
+        # pixels make the stem's gradient cancel: phase 27).
+        cfg = FaceDetectionConfig(image_size=(size, size))
+        ref_tr = Trainer(cfg, learning_rate=1e-3, device=dev)
+        dp_batch = ref_tr.make_batch(BATCH, max_faces=32, seed=SEED)
+        init_model = ref_tr.init_state(seed=SEED).model
+        _, g_card = loss_and_grads(ref_tr, init_model, dp_batch, torch.float32)
+        _, g64 = loss_and_grads(Trainer(cfg, device="cpu"), init_model, dp_batch, torch.float64)
+        e_card = grad_rel_l2(g_card, g64)
+        del init_model
+
+        # (b) One NCCL rank: the FSDP2 Trainer over make_mesh(1).
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        initialize_distributed(f"localhost:{port}", 1, 0, device=dev.type)
+        try:
+            plain = Trainer(cfg, learning_rate=1e-3, device=dev)
+            sharded = Trainer(cfg, learning_rate=1e-3, mesh=make_mesh(1, device=dev.type), device=dev)
+            p_state = plain.init_state(seed=SEED)
+            p_step, s_step = plain.make_train_step(), sharded.make_train_step()
+            # Each sharded step from the unsharded state before it, carried
+            # over by save_train_state / restore_train_state (run free, the
+            # two part through the signs Adam's first steps take, as the
+            # card and the CPU do in phase 27).
+            rows, var_err, mean_err, p_err, g_err = [], 0.0, 0.0, 0.0, 0.0
+            for i, b in enumerate(train_batches):
+                save_train_state(os.path.join(work, "plain"), p_state)
+                s_state = restore_train_state(os.path.join(work, "plain"), sharded.init_state(seed=SEED + 1))
+                p_state, pm = p_step(p_state, b)
+                s_state, sm = s_step(s_state, b)
+                rows.append((float(sm["loss"]), float(pm["loss"])))
+                p_sd, s_sd = p_state.export_state_dict(), s_state.export_state_dict()
+                var_err = max(var_err, max(float(((s_sd[k] - v).abs() / v.abs()).max())
+                                           for k, v in p_sd.items() if "running_var" in k))
+                mean_err = max(mean_err, max(float((s_sd[k] - v).abs().max())
+                                             for k, v in p_sd.items() if "running_mean" in k))
+                params = dict(p_state.model.named_parameters())
+                p_err = max(p_err, max(float((s_sd[k] - params[k].detach().cpu()).abs().max()) for k in params))
+                g_err = max(g_err, grad_rel_l2({n: p.grad.full_tensor().double().cpu()
+                                                for n, p in s_state.model.named_parameters()},
+                                               {n: p.grad.double().cpu() for n, p in params.items()}))
+            bound = 2 * 1.01 * 1e-3
+            loss_rel = max(abs(a / b - 1) for a, b in rows)
+            ckpt = os.path.join(work, "state")
+            save_train_state(ckpt, s_state)
+            resumed = restore_train_state(ckpt, sharded.init_state(seed=SEED + 1))
+            det_before = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                s_state, m_mem = s_step(s_state, train_batches[0])
+                resumed, m_res = s_step(resumed, train_batches[0])
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(det_before)
+            a, r = s_state.export_state_dict(), resumed.export_state_dict()
+            resumed_equal = torch.equal(m_mem["loss"], m_res["loss"]) and all(torch.equal(a[k], r[k]) for k in a)
+            ms = {}
+            for label, (tr_step, st) in (("plain", (p_step, p_state)), ("FSDP2", (s_step, s_state)),
+                                         ("FSDP2", (s_step, s_state)), ("plain", (p_step, p_state))):
+                ms.setdefault(label, []).append(cuda_ms(lambda: tr_step(st, train_batches[0]), 3, windows=3))
+        finally:
+            dist.destroy_process_group()
+        print(
+            f"phase 28 (b) one NCCL rank (initialize_distributed, make_mesh(1)): the FSDP2 Trainer, mnet {size} b8, 3 "
+            f"steps on phase 27's batches from its seeded init, each from the unsharded Trainer's state before it "
+            f"(through save_train_state / restore_train_state onto the sharded template), against the unsharded "
+            f"step on the card: loss " + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in rows)
+            + f" (rel {loss_rel:.3g} <= 1e-5), running_var rel {var_err:.3g}, running_mean abs {mean_err:.3g} (<= "
+            f"1e-5), gradients (gathered) rel L2 {g_err:.3g} (<= 2 x {e_card:.3g}, the unsharded card step's "
+            f"distance from float64 at the seeded init), params max abs {p_err:.3g} (<= {bound:.4g}, not "
+            f"evidence: Adam's first steps move each by about lr whatever the gradient); the sharded state "
+            f"saved, restored and the next "
+            f"step torch.equal to continuing in memory (deterministic algorithms): {resumed_equal}; ms per step "
+            f"(CUDA events) plain {fmt(ms['plain'][0])}, FSDP2 {fmt(ms['FSDP2'][0])}, FSDP2 again "
+            f"{fmt(ms['FSDP2'][1])}, plain again {fmt(ms['plain'][1])} {card}"
+        )
+        check(loss_rel <= 1e-5 and var_err <= 1e-5 and mean_err <= 1e-5 and p_err <= bound,
+              f"phase 28 (b): loss {rows}, buffers {var_err} {mean_err}, params {p_err}")
+        check(g_err <= 2 * e_card, f"phase 28 (b): gradients rel L2 {g_err} > 2 x {e_card}")
+        check(resumed_equal, "phase 28 (b): the resumed sharded step differs from continuing in memory")
+        del p_state, s_state, resumed, plain, sharded
+        torch.cuda.empty_cache()
+
+        # K4 at a tensor-parallel rank's local shape, (8, 257, 8, 64) bf16.
+        qkv = torch.from_numpy(rng.normal(size=(BATCH, 257, 3, 8, 64)).astype(np.float32)).to(dev, torch.bfloat16)
+        q, k, v = qkv.unbind(2)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        local_err = float((katt.flash_attention_cuda(q, k, v).float() - attention_plain(q, k, v).float()).abs().max())
+        check(local_err <= 1e-2 * float(v.float().abs().max()), f"phase 28: K4 != plain at (8, 257, 8, 64): {local_err}")
+        k4_local = graph_ms(lambda: katt.flash_attention_cuda(q, k, v))
+        sdpa_local = graph_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+        plain_local = cuda_ms(lambda: attention_plain(q, k, v), 20)
+        k4_local2 = graph_ms(lambda: katt.flash_attention_cuda(q, k, v))
+        b, n, h, d = q.shape
+        local_bound = card_bound(4 * b * n * h * d * 2, 4 * b * h * n * n * d, BF16_OPS_PER_S)
+        print(
+            f"phase 28 attention (8, 257, 8, 64) bf16, a tensor-parallel rank's heads, per call (bound "
+            f"{local_bound[0] * 1e3:.2f} us by {local_bound[1]}): on the device (graph replay) K4 {fmt(k4_local)}, "
+            f"scaled_dot_product_attention {fmt(sdpa_local)}, K4 again {fmt(k4_local2)}; plain from Python "
+            f"{fmt(plain_local)}; K4 vs plain max abs err {local_err:.3g} {card}"
+        )
+
+        # (c) and (d): the two ranks, started once the timings above are done.
+        code = ("import sys; sys.path.insert(0, {!r}); import chip_smoke; "
+                "chip_smoke.multi_rank_child({}, {}, {!r}, {!r}, {!r}, {})")
+        procs = [subprocess.Popen([sys.executable, "-c", code.format(HERE, r, world, work, dev.type, tower, size)],
+                                  cwd=HERE,
+                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(world)]
+        outs = []
+        for r, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"phase 28: rank {r} passed its 600 s deadline") from None
+            if proc.returncode != 0:
+                print(out[-3000:] + err[-6000:], file=sys.stderr)
+            check(proc.returncode == 0, f"phase 28: rank {r} exited {proc.returncode}")
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+        r0 = outs[0]
+        tp_launches = sum(o["k4_f32"] + o["k4_bf16"] for o in outs)
+        print(
+            f"phase 28 (c) tensor-parallel {tower} (seeded), b{BATCH} at 224, tp = {world}: "
+            f"route gloo all-reduce on CUDA tensors, {world} processes sharing {r0['device']} (NCCL refuses two "
+            f"ranks on one card); {outs[0]['local_heads_f32']} heads per rank, K4 launches per rank per forward "
+            f"{[o['k4_f32'] for o in outs]} (f32) and {[o['k4_bf16'] for o in outs]} (bf16) at (8, 257, 8, 64); "
+            f"against the unsharded tower on the card: f32 probabilities max err {r0['prob_err_f32']:.3g} (<= "
+            f"1e-5), logits {r0['logit_err_f32']:.3g} of max {r0['logit_max_f32']:.4g}; bf16 probabilities "
+            f"{r0['prob_err_bf16']:.3g} (<= 1e-2), logits {r0['logit_err_bf16']:.3g} of max "
+            f"{r0['logit_max_bf16']:.4g}; ms per forward (CUDA events, host collectives included) tp f32 "
+            f"{fmt_ms(r0['tp_ms_f32'])}, bf16 {fmt_ms(r0['tp_ms_bf16'])}; unsharded f32 "
+            f"{fmt_ms(r0['unsharded_ms_f32'])}, bf16 {fmt_ms(r0['unsharded_ms_bf16'])} {card}"
+        )
+        for name, tol in (("f32", 1e-5), ("bf16", 1e-2)):
+            check(all(o[f"k4_{name}"] == 24 and o[f"local_heads_{name}"] == 16 // world for o in outs),
+                  f"phase 28 (c) {name}: K4 launches {[o[f'k4_{name}'] for o in outs]}")
+            check(r0[f"finite_{name}"] and r0[f"prob_err_{name}"] <= tol,
+                  f"phase 28 (c) {name}: probabilities {r0[f'prob_err_{name}']} > {tol}")
+        # (d) against the unsharded Trainer on the card, the same init and batch.
+        ref_state, ref_m = ref_tr.make_train_step()(ref_tr.init_state(seed=SEED), dp_batch)
+        ref_sd = ref_state.export_state_dict()
+        with np.load(os.path.join(work, "dp_state.npz")) as data:
+            dp = {k: torch.from_numpy(data[k]) for k in data.files}
+        loss_rel = abs(r0["metrics"]["loss"] / float(ref_m["loss"]) - 1)
+        dp_var = max(float(((dp[k] - v).abs() / v.abs()).max()) for k, v in ref_sd.items() if "running_var" in k)
+        dp_mean = max(float((dp[k] - v).abs().max()) for k, v in ref_sd.items() if "running_mean" in k)
+        ref_params = dict(ref_state.model.named_parameters())
+        dp_p = max(float((dp[k] - p.detach().cpu()).abs().max()) for k, p in ref_params.items())
+        dp_g = {n: dp[f"grad/{n}"].double() for n in ref_params}
+        e_dp, dp_vs_card = grad_rel_l2(dp_g, g64), grad_rel_l2(dp_g, g_card)
+        print(
+            f"phase 28 (d) data-parallel train step, {world} ranks sharing the card through gloo (FSDP2's "
+            f"all-gather and reduce-scatter and the global BatchNorm all-reduces on CUDA tensors), mnet {size}, global "
+            f"b{BATCH} of make_batch (4 rows per rank): loss {r0['metrics']['loss']:.6f} against the unsharded "
+            f"Trainer's {float(ref_m['loss']):.6f} (rel {loss_rel:.3g} <= 1e-5), metrics equal on both ranks, "
+            f"running_var rel {dp_var:.3g}, running_mean abs {dp_mean:.3g} (<= 1e-5), gradients (gathered) rel L2 "
+            f"from float64 {e_dp:.3g} against the unsharded card step's {e_card:.3g} (<= {DP_GRAD_FACTOR} x), "
+            f"from the unsharded card step's {dp_vs_card:.3g}, params max abs {dp_p:.3g} "
+            f"(<= {2 * 1.01e-3:.4g}, not evidence); ms per step (CUDA events on rank 0, host collectives included) "
+            f"{fmt_ms(r0['step_ms'])} {card}"
+        )
+        check(all(o["metrics"] == r0["metrics"] for o in outs), "phase 28 (d): the ranks' metrics differ")
+        check(loss_rel <= 1e-5 and dp_var <= 1e-5 and dp_mean <= 1e-5 and dp_p <= 2 * 1.01e-3,
+              f"phase 28 (d): loss {loss_rel}, buffers {dp_var} {dp_mean}, params {dp_p}")
+        check(e_dp <= DP_GRAD_FACTOR * e_card,
+              f"phase 28 (d): gradients {e_dp} from float64 > {DP_GRAD_FACTOR} x the unsharded step's {e_card}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(work, ignore_errors=True)
+    counts["flash_attention"] += tp_launches
+    print(f"phase 28 multi-device: {time.perf_counter() - t_phase:.1f} s in all; launches {counts} {card}")
+    return {"counts": counts, "k4_local": {"ms": k4_local[0], "library_ms": sdpa_local[0], "plain_ms":
+                                           plain_local[0], "bound_ms": local_bound[0]}}
 
 
 def gpu_tests_phase(card):
@@ -3424,6 +3846,7 @@ def main() -> int:
     }
     k2_cases = {
         "letterboxed (8, 640, 640)": r50_canvas,
+        "letterboxed (4, 640, 640), a replica's share": r50_canvas[: BATCH // 2],
         "(2, 72, 96)": torch.from_numpy(wrng.integers(0, 256, (2, 72, 96, 3), dtype=np.uint8)).to(dev),
         "(3, 70, 34)": torch.from_numpy(wrng.integers(0, 256, (3, 70, 34, 3), dtype=np.uint8)).to(dev),
         "(1, 2, 2)": torch.from_numpy(wrng.integers(0, 256, (1, 2, 2, 3), dtype=np.uint8)).to(dev),
@@ -3626,7 +4049,11 @@ def main() -> int:
     by_path.update(serving_phase(dev, card, p25, ekyc, reg))
     deploy = deployment_phase(dev, card, reg, dict(p25, canvas=canvas, real_cand=real_cand, r50_sd=r50_sd))
     by_path.update(http=deploy["http"], aot=deploy["aot"])
-    by_path.update(training_phase(dev, np.random.default_rng(SEED + 27), face, card, det_sd))
+    train_counts, train_batches = training_phase(dev, np.random.default_rng(SEED + 27), face, card, det_sd)
+    by_path.update(train_counts)
+    multi = multi_device_phase(dev, card, det_sd, r50_sd, face, train_batches)
+    by_path["multi_device"] = multi["counts"]
+    del train_batches
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")
@@ -3670,7 +4097,9 @@ def main() -> int:
             "f32_fma_bound_ms": k2_fma_bound[0],
             "library_ms": None,
         },
-        ekyc["k4"],
+        dict(ekyc["k4"], tp_local_shape=[8, 257, 8, 64], tp_local_ms=multi["k4_local"]["ms"],
+             tp_local_plain_ms=multi["k4_local"]["plain_ms"], tp_local_bound_ms=multi["k4_local"]["bound_ms"],
+             tp_local_library_ms=multi["k4_local"]["library_ms"]),
         int8["k3"],
     ]
     for entry in entries:  # launches as counted on each main path's run

@@ -17,6 +17,7 @@ import contextlib
 import threading
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -33,11 +34,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     the *biased* variance, computed as flax does, E[x^2] - E[x]^2 clipped at 0
     (``nn.BatchNorm2d`` would take the unbiased one, n/(n-1) larger).  The
     buffers are not updated while ``remat`` recomputes a block, as flax's
-    ``nn.remat`` updates them once."""
+    ``nn.remat`` updates them once.
+
+    ``stats_group`` (``sync_batch_stats``): the process group of the ranks
+    that hold the other rows of the batch (the mesh's "data" axis).  With a
+    group of more than one rank, training takes the statistics of the global
+    batch, as JAX's one-program train step does over a batch sharded on
+    "data": a sum, a sum of squares and a count, summed over the group by
+    an all-reduce, then flax's mean, biased variance and normalization, with
+    a backward that sums over the group too (``_GlobalBatchNorm``).
+    ``nn.SyncBatchNorm`` would update ``running_var`` with the unbiased
+    variance."""
+
+    stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.stats_group is not None and dist.get_world_size(self.stats_group) > 1:
+            return self._global_forward(x)
         if not getattr(_recompute, "active", False):
             with torch.no_grad():
                 xf = x.float()
@@ -47,6 +62,65 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.running_mean.copy_(self.running_mean * keep + mean * self.momentum)
                 self.running_var.copy_(self.running_var * keep + var * self.momentum)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, self.stats_group)
+        if not getattr(_recompute, "active", False):
+            with torch.no_grad():
+                keep = 1.0 - self.momentum
+                self.running_mean.copy_(self.running_mean * keep + mean * self.momentum)
+                self.running_var.copy_(self.running_var * keep + var * self.momentum)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training BatchNorm over the rows of every rank of ``group``: flax's
+    statistics of the global batch (mean, and the biased variance E[x^2] -
+    E[x]^2 clipped at 0) from one all-reduce of each rank's per-channel sum,
+    sum of squares and count.  The backward is the analytic one, as
+    F.batch_norm's (the centered form, with one all-reduce of the sums of
+    dy and dy * xhat): autograd through E[x^2] - E[x]^2 would cancel most
+    digits of the gradient where raw pixels make a channel's mean large.
+    The weight and bias gradients are this rank's share; the data-parallel
+    average over the ranks completes them.  Returns (y, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        xf = x.float()
+        stats = torch.cat([xf.sum(dim=(0, 2, 3)), (xf * xf).sum(dim=(0, 2, 3)), xf.new_full((1,), x.numel() // c)])
+        dist.all_reduce(stats, group=group)
+        count = stats[2 * c]
+        mean = stats[:c] / count
+        var = (stats[c : 2 * c] / count - mean * mean).clamp(min=0.0)
+        invstd = torch.rsqrt(var + eps)
+        xhat = (xf - mean[None, :, None, None]) * invstd[None, :, None, None]
+        y = xhat * weight[None, :, None, None] + bias[None, :, None, None]
+        ctx.save_for_backward(xhat, invstd, weight, count)
+        ctx.group, ctx.dtype = group, x.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        xhat, invstd, weight, count = ctx.saved_tensors
+        c = xhat.shape[1]
+        g = dy.float()
+        local = torch.cat([g.sum(dim=(0, 2, 3)), (g * xhat).sum(dim=(0, 2, 3))])
+        d_bias, d_weight = local[:c].clone(), local[c:].clone()
+        dist.all_reduce(local, group=ctx.group)
+        mean_dy, mean_dy_xhat = local[:c] / count, local[c:] / count
+        dx = (g - mean_dy[None, :, None, None] - xhat * mean_dy_xhat[None, :, None, None]) * (
+            invstd * weight)[None, :, None, None]
+        return dx.to(ctx.dtype), d_weight.to(weight.dtype), d_bias.to(weight.dtype), None, None
+
+
+def sync_batch_stats(module: nn.Module, group) -> None:
+    """Set the process group over which every BatchNorm2d of ``module``
+    takes its training statistics (None: each rank's own rows)."""
+    for m in module.modules():
+        if isinstance(m, BatchNorm2d):
+            m.stats_group = group
 
 
 @contextlib.contextmanager

@@ -58,7 +58,12 @@ CONFIGS = {
 
 
 class Attention(nn.Module):
-    """Packed qkv projection, K4, output projection (CLIP's key names)."""
+    """Packed qkv projection, K4, output projection (CLIP's key names).
+
+    ``heads`` is the number of heads this module computes: under tensor
+    parallelism (parallel/tp.py) the rank's share, with ``in_proj_*``
+    holding those heads' rows of each of q, k and v and ``out_proj`` their
+    columns, so the widths follow the weights, not the residual stream."""
 
     def __init__(self, width: int, heads: int) -> None:
         super().__init__()
@@ -70,11 +75,11 @@ class Attention(nn.Module):
         self.out_proj = nn.Linear(width, width)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        b, n, w = x.shape
+        b, n, _ = x.shape
         # Output features are [q | k | v], each (heads, head_dim) head-major.
         qkv = F.linear(x, self.in_proj_weight, self.in_proj_bias).view(b, n, 3, self.heads, -1)
         o = attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2])
-        return self.out_proj(o.view(b, n, w))
+        return self.out_proj(o.view(b, n, -1))
 
 
 class MLP(nn.Module):

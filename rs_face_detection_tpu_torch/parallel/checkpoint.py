@@ -5,9 +5,12 @@ the same ``<directory>/<step>/`` layout and errors.  The parameters, the
 BatchNorm buffers, the optimizer state (through
 ``torch.distributed.checkpoint.state_dict``, keyed by parameter names), the
 step and the EMA parameters survive a restart.  It runs in one process
-without a process group; a sharded state saves through the same calls.
-Inference weights use the registry .npz instead (models/weights.py::
-save_flax_checkpoint).
+without a process group, or sharded: a state of ``Trainer(mesh=...)`` is
+saved by every rank, each writing its own shards into the one directory,
+and a restore loads into the template's placements, as orbax re-applies the
+template's shardings, so a state saved on one mesh restores onto another
+mesh shape or onto one device.  Inference weights use the registry .npz
+instead (models/weights.py::save_flax_checkpoint).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import warnings
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 from torch.distributed.checkpoint.state_dict import get_state_dict, set_state_dict
 
@@ -35,7 +39,7 @@ def _steps(directory: str):
 
 def save_train_state(directory: str, state: TrainState, step: Optional[int] = None) -> str:
     """Save a TrainState under directory/<step> (replacing one there);
-    returns the path."""
+    returns the path.  Sharded: a collective, called by every rank."""
     step = state.step if step is None else step
     path = os.path.join(os.path.abspath(directory), str(step))
     model, optimizer = state.model, state.optimizer
@@ -47,7 +51,11 @@ def save_train_state(directory: str, state: TrainState, step: Optional[int] = No
     tree = {"model": model_sd, "optim": optim_sd, "step": torch.tensor(state.step)}
     if state.ema_params is not None:
         tree["ema"] = state.ema_params
-    shutil.rmtree(path, ignore_errors=True)
+    distributed = dist.is_initialized()
+    if not distributed or dist.get_rank() == 0:
+        shutil.rmtree(path, ignore_errors=True)
+    if distributed:
+        dist.barrier()
     with warnings.catch_warnings():
         warnings.filterwarnings("ignore", message=_SINGLE_PROCESS)
         dcp.save(tree, checkpoint_id=path)
@@ -56,9 +64,10 @@ def save_train_state(directory: str, state: TrainState, step: Optional[int] = No
 
 def restore_train_state(directory: str, template: TrainState, step: Optional[int] = None) -> TrainState:
     """Restore a TrainState saved by save_train_state into ``template`` (a
-    freshly initialized state of the same Trainer, whose tensors stay on
-    their device), from the latest step unless ``step`` is given; returns
-    it.  FileNotFoundError when there is no checkpoint."""
+    freshly initialized state of a Trainer of the same model, whose tensors
+    keep their devices and placements), from the latest step unless
+    ``step`` is given; returns it.  FileNotFoundError when there is no
+    checkpoint.  A sharded template: a collective, called by every rank."""
     directory = os.path.abspath(directory)
     if step is None:
         steps = _steps(directory)

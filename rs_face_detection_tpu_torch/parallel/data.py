@@ -26,9 +26,11 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..ops.image import letterbox_geometry
 from ..utils.device import DeviceLike, resolve_device
+from .mesh import data_rows
 from .train import TrainBatch
 
 try:  # cv2 is the decoder and the resize; the loader refuses to start without it
@@ -220,16 +222,24 @@ class DetectionDataLoader:
             ignore[:k] = ign_src
         return image, boxes, lms, valid, lm_valid, ignore
 
-    def batches(self, epochs: Optional[int] = 1, device: Optional[DeviceLike] = None) -> Iterator[TrainBatch]:
+    def batches(
+        self, epochs: Optional[int] = 1, device: Optional[DeviceLike] = None, mesh: Optional[DeviceMesh] = None
+    ) -> Iterator[TrainBatch]:
         """Yield TrainBatches of numpy arrays, or with ``device`` of tensors
         there (copied from pinned memory to a card); ``epochs=None`` streams
-        forever, reshuffling each epoch."""
+        forever, reshuffling each epoch.  With a ("data", "model") ``mesh``
+        (parallel/mesh.py::make_mesh) each batch is this rank's data index's
+        rows of the global batch of ``batch_size`` (only those are decoded):
+        every rank builds its loader from the same examples and seed, so the
+        ranks draw the same global batches, as the JAX loader's
+        ``sharding=`` splits one global batch over the devices."""
         dev = None if device is None else resolve_device(device)
+        share = data_rows(mesh, self.batch_size)
         epoch = 0
         while epochs is None or epoch < epochs:
             order = self._rng.permutation(len(self.examples))
             for lo in range(0, len(order) - self.batch_size + 1, self.batch_size):
-                idx = order[lo : lo + self.batch_size]
+                idx = order[lo : lo + self.batch_size][share]
                 rows = list(self._pool.map(self._load_one, [self.examples[i] for i in idx]))
                 arrs = [np.stack(col) for col in zip(*rows)]
                 if dev is not None:

@@ -1,20 +1,30 @@
-"""RetinaFace training on one device: multi-task loss, anchor matching and
-the train step.
+"""RetinaFace training: multi-task loss, anchor matching and the train step,
+on one device or sharded over a ("data", "model") mesh of ranks.
 
-Counterpart of rs_face_detection_tpu/parallel/train.py without the mesh
-(one device).  The loss is the RetinaFace paper's: 2-class softmax CE with
-hard-negative mining (OHEM) + smooth-L1 box regression + smooth-L1 landmark
-regression over matched anchors, computed for the whole batch at once where
-JAX vmaps it over images.  The optimizer is optax's ``adamw`` as
-``torch.optim.AdamW`` with two parameter groups (decay on leaves of more than
-one dimension only), the schedule optax's ``warmup_cosine_decay_schedule``
-read at the count of updates made before the step, and the EMA the JAX
-step's ``d * e + (1 - d) * p`` after each update.
+Counterpart of rs_face_detection_tpu/parallel/train.py.  The loss is the
+RetinaFace paper's: 2-class softmax CE with hard-negative mining (OHEM) +
+smooth-L1 box regression + smooth-L1 landmark regression over matched
+anchors, computed for the whole batch at once where JAX vmaps it over
+images.  The optimizer is optax's ``adamw`` as ``torch.optim.AdamW`` with
+two parameter groups (decay on leaves of more than one dimension only), the
+schedule optax's ``warmup_cosine_decay_schedule`` read at the count of
+updates made before the step, and the EMA the JAX step's
+``d * e + (1 - d) * p`` after each update.
 
 A ``TrainState`` owns its module (parameters and BatchNorm buffers, whose
 statistics follow flax's: models/layers.py::BatchNorm2d) and its optimizer;
 the step updates them in place, as the JAX step consumes its donated state,
 and returns the state.
+
+With ``Trainer(mesh=...)`` (parallel/mesh.py::make_mesh; one process per
+rank) the module is sharded by FSDP2 under the JAX package's FSDP rule
+before the optimizer is built, every rank takes its data index's rows of
+the global batch (``make_batch``, ``DetectionDataLoader.batches(mesh=)``),
+the BatchNorms take the global batch's statistics over the "data" axis, and
+the metrics the step returns are the global batch's means, the same on
+every rank: the JAX step over a batch sharded on "data".  FSDP2 averages
+the gradients over every rank; with the global statistics that is the
+gradient of the mean loss over the global batch.
 """
 
 from __future__ import annotations
@@ -25,14 +35,18 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from ..configs import RPN_ANCHOR_CFG, FaceDetectionConfig
+from ..models.layers import sync_batch_stats
 from ..models.retinaface import RetinaFace
 from ..models.weights import seeded_state, state_dict_from_jax
 from ..ops.anchors import full_anchor_table
 from ..ops.box_decode import bbox_overlaps
 from ..utils.device import DeviceLike, resolve_device, to_device
+from .mesh import axis_size, data_rows, shard_pytree_fsdp
 
 
 class TrainBatch(NamedTuple):
@@ -79,11 +93,21 @@ class TrainState:
     def export_state_dict(self) -> Dict[str, torch.Tensor]:
         """The module's state_dict on the CPU with the EMA parameters in
         place of the raw ones when they are kept: what the entry point
-        exports."""
-        sd = {k: v.detach().cpu().clone() for k, v in self.model.state_dict().items()}
+        exports.  A sharded state is gathered whole (a collective: every
+        rank calls it)."""
+        sd = {k: _full(v) for k, v in self.model.state_dict().items()}
         if self.ema_params is not None:
-            sd.update({k: v.detach().cpu().clone() for k, v in self.ema_params.items()})
+            sd.update({k: _full(v) for k, v in self.ema_params.items()})
         return sd
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    """A detached CPU copy of a tensor, gathered whole if it is a DTensor."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().cpu().clone()
 
 
 def _smooth_l1(x: torch.Tensor, beta: float = 1.0) -> torch.Tensor:
@@ -300,7 +324,9 @@ def warmup_cosine_decay_schedule(peak_value: float, warmup_steps: int, decay_ste
 
 
 class Trainer:
-    """RetinaFace trainer on one device (``device``: the card by default)."""
+    """RetinaFace trainer on one device, or with ``mesh`` on this rank's
+    device of a ("data", "model") mesh: data parallel over "data", FSDP
+    parameters over "model" (``device``: the card by default)."""
 
     def __init__(
         self,
@@ -314,15 +340,20 @@ class Trainer:
         total_steps: int = 0,
         weight_decay: float = 1e-4,
         ema_decay: float = 0.0,
+        mesh: Optional[DeviceMesh] = None,
         device: DeviceLike = "cuda",
     ) -> None:
         """pos/neg_iou: the anchor-match thresholds (detection_loss).
         dtype: float32, or bfloat16 for autocast with float32 parameters.
         remat: recompute the backbone's blocks on the backward pass.
-        total_steps > 0 turns on linear warmup then cosine decay."""
+        total_steps > 0 turns on linear warmup then cosine decay.
+        mesh: parallel/mesh.py::make_mesh's mesh, on ``device``'s type."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
         self.device = resolve_device(device)
+        self.mesh = mesh
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a mesh of {mesh.device_type} devices for a Trainer on {self.device}")
         self.cfg = cfg or FaceDetectionConfig()
         self.pos_iou = pos_iou
         self.neg_iou = neg_iou
@@ -361,6 +392,10 @@ class Trainer:
         sd = seeded_state(model, seed) if variables is None else state_dict_from_jax(self.family, variables)
         model.load_state_dict(sd)
         model.to(self.device).train()
+        if self.mesh is not None:
+            if axis_size(self.mesh, "data") > 1:
+                sync_batch_stats(model, self.mesh.get_group("data"))
+            shard_pytree_fsdp(model, self.mesh)
         mask = _weight_decay_mask(dict(model.named_parameters()))
         decay = [p for n, p in model.named_parameters() if mask[n]]
         rest = [p for n, p in model.named_parameters() if not mask[n]]
@@ -408,7 +443,9 @@ class Trainer:
     def make_train_step(self) -> Callable[[TrainState, TrainBatch], Tuple[TrainState, Dict[str, torch.Tensor]]]:
         """``step(state, batch) -> (state, metrics)``: one AdamW update of
         the mean per-image loss, made in place; the metrics are 0-d tensors
-        on the device (the batch means of the parts, and ``loss``)."""
+        on the device (the batch means of the parts, and ``loss``).  With a
+        mesh, ``batch`` is this rank's rows of the global batch and the
+        metrics are the global batch's."""
 
         def step(state: TrainState, batch: TrainBatch):
             batch = self.prepare(batch)
@@ -433,13 +470,27 @@ class Trainer:
             state.step += 1
             out = {k: v.detach().mean() for k, v in metrics.items()}
             out["loss"] = loss.detach()
+            if self.mesh is not None:
+                out = self._global_means(out)
             return state, out
 
         return step
 
+    def _global_means(self, local: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Means over the "data" axis of each rank's batch means (equal
+        shares of the global batch): the global batch's means."""
+        data = axis_size(self.mesh, "data")
+        if data == 1:
+            return local
+        names = list(local)
+        summed = torch.stack([local[k] for k in names])
+        dist.all_reduce(summed, group=self.mesh.get_group("data"))
+        return {k: v / data for k, v in zip(names, summed.unbind())}
+
     def make_batch(self, batch_size: int, max_faces: int = 8, seed: int = 0) -> TrainBatch:
         """Synthetic batch for smoke tests, on the trainer's device: the JAX
-        Trainer's ``make_batch`` arrays for the same arguments."""
+        Trainer's ``make_batch`` arrays for the same arguments (with a mesh,
+        this rank's rows of them; ``batch_size`` is the global batch)."""
         rng = np.random.default_rng(seed)
         width, height = self.cfg.image_size
         images = rng.uniform(0, 255, (batch_size, height, width, 3)).astype(np.float32)
@@ -456,5 +507,6 @@ class Trainer:
             axis=-1,
         ).astype(np.float32)
         valid = np.arange(max_faces)[None, :] < rng.integers(1, max_faces + 1, batch_size)[:, None]
+        rows = data_rows(self.mesh, batch_size)
         dev = self.device
-        return TrainBatch(*(torch.from_numpy(a).to(dev) for a in (images, boxes, lms, valid)))
+        return TrainBatch(*(torch.from_numpy(a[rows]).to(dev) for a in (images, boxes, lms, valid)))

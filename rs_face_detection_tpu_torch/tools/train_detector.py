@@ -19,6 +19,14 @@ latest; with ``--eval-every`` and ``--val-labels`` the output holds the
 best-validation-AP weights (the AP of ops/eval.py::evaluate_detector through
 the port's RetinaFaceDetection), recorded in ``<out>.bestap.json`` so that a
 resumed run never overwrites a better checkpoint.
+
+Under ``torchrun`` (``python -m torch.distributed.run --nproc-per-node N -m
+rs_face_detection_tpu_torch.tools.train_detector ...``) it trains data
+parallel over the N processes, one card each (gloo with ``--device cpu``):
+``--batch`` is the global batch and must divide by N, every rank decodes its
+rows of each batch and saves its shards of the train state, and only rank 0
+writes the .npz, its sidecar and the log.  Without ``torchrun`` it runs in
+one process.
 """
 
 from __future__ import annotations
@@ -78,6 +86,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from ..utils.device import resolve_device
 
     device = resolve_device(args.device)  # no card, no work: raise before reading the data
+    import torch.distributed as dist
+
+    from ..parallel.mesh import initialize_distributed, make_mesh
+
+    mesh = None
+    if "WORLD_SIZE" in os.environ:  # launched by torchrun: one process per card
+        world = int(os.environ["WORLD_SIZE"])
+        if args.batch % world:  # refused before any rank joins the group
+            raise SystemExit(f"--batch {args.batch} not divisible by {world} processes")
+        initialize_distributed(device=args.device)
+        mesh = make_mesh(world, device=args.device)
+        device = resolve_device(args.device)  # this rank's card
+    rank0 = mesh is None or dist.get_rank() == 0
+    log = print if rank0 else (lambda *a, **k: None)
 
     from ..configs import FaceDetectionConfig
     from ..models.weights import save_flax_checkpoint
@@ -89,7 +111,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
 
     read_labels = wider_examples if args.wider_gt else parse_retinaface_label
     examples = read_labels(args.labels)
-    print(f"{len(examples)} annotated images from {args.labels}")
+    log(f"{len(examples)} annotated images from {args.labels}")
     if len(examples) < args.batch:
         # The loader yields only full batches per epoch.
         raise SystemExit(
@@ -101,7 +123,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     trainer = Trainer(
         cfg, learning_rate=args.lr, pos_iou=args.pos_iou, neg_iou=args.neg_iou, remat=args.remat,
         warmup_steps=args.warmup_steps, total_steps=args.steps if args.warmup_steps > 0 else 0,
-        ema_decay=args.ema_decay, device=device,
+        ema_decay=args.ema_decay, mesh=mesh, device=device,
     )
 
     # Validation set: (original BGR image, gt boxes in original coordinates).
@@ -112,7 +134,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             img = cv2.imread(os.path.join(val_root, ex.rel_path))
             if img is not None:
                 val_set.append((img, np.asarray(ex.boxes, np.float32).reshape(-1, 4)))
-        print(f"{len(val_set)} validation images from {args.val_labels}")
+        log(f"{len(val_set)} validation images from {args.val_labels}")
         if args.eval_every > 0 and not val_set:
             # Every eval would be skipped and nothing exported.
             raise SystemExit(
@@ -120,6 +142,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             )
 
     def eval_ap(st) -> float:
+        # Every rank evaluates the same gathered weights on the same images,
+        # so the ranks agree on each new best.
         model = trainer.new_model()
         model.load_state_dict(st.export_state_dict())
         det = RetinaFaceDetection(cfg, model=model, device=trainer.device)
@@ -130,7 +154,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.checkpoint_dir and latest_step(args.checkpoint_dir) is not None:
         state = restore_train_state(args.checkpoint_dir, state)
         start = state.step
-        print(f"resumed from step {start} ({args.checkpoint_dir})")
+        log(f"resumed from step {start} ({args.checkpoint_dir})")
 
     step_fn = trainer.make_train_step()
     sidecar = args.out + ".bestap.json"
@@ -140,27 +164,28 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             try:
                 with open(sidecar) as f:
                     best_ap = float(json.load(f)["ap"])
-                print(f"previous best val AP {best_ap:.4f} ({sidecar})")
+                log(f"previous best val AP {best_ap:.4f} ({sidecar})")
             except (OSError, ValueError, KeyError):
                 pass
         else:
             # A sidecar without its checkpoint would suppress every write.
-            print(f"ignoring stale {sidecar} (no {args.out} next to it)")
-            os.remove(sidecar)
+            log(f"ignoring stale {sidecar} (no {args.out} next to it)")
+            if rank0:
+                os.remove(sidecar)
 
     t0 = time.perf_counter()
     g = start
     with DetectionDataLoader(
         examples, args.images, image_size=(w, h), batch_size=args.batch, max_faces=args.max_faces
     ) as loader:
-        for i, batch in enumerate(loader.batches(epochs=None, device=trainer.device)):
+        for i, batch in enumerate(loader.batches(epochs=None, device=trainer.device, mesh=mesh)):
             if g >= args.steps:
                 break
             state, metrics = step_fn(state, batch)
             g = start + i + 1
             if (g - 1) % args.log_every == 0 or g == args.steps:
                 m = {k: float(v) for k, v in metrics.items()}
-                print(
+                log(
                     f"step {g - 1}: loss={m['loss']:.4f} cls={m['cls_loss']:.4f} box={m['box_loss']:.4f} "
                     f"lm={m['lm_loss']:.4f} pos={m['num_pos']:.1f} ({(time.perf_counter() - t0) / (i + 1):.2f}s/step)"
                 )
@@ -169,12 +194,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 marker = ""
                 if ap > best_ap:
                     best_ap = ap
-                    save_flax_checkpoint(args.out, trainer.family, state.export_state_dict())
-                    with open(sidecar, "w") as f:
-                        json.dump({"ap": ap, "step": g}, f)
+                    sd = state.export_state_dict()
+                    if rank0:
+                        save_flax_checkpoint(args.out, trainer.family, sd)
+                        with open(sidecar, "w") as f:
+                            json.dump({"ap": ap, "step": g}, f)
                     wrote_best = True
                     marker = f"  (new best -> {args.out})"
-                print(f"step {g}: val AP {ap:.4f}{marker}")
+                log(f"step {g}: val AP {ap:.4f}{marker}")
             if args.checkpoint_dir and (g % args.save_every == 0 or g == args.steps):
                 save_train_state(args.checkpoint_dir, state, step=g)
 
@@ -182,15 +209,19 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         # --out already holds the best-val-AP weights (written on each new
         # best, possibly by an earlier run of a resumed job).
         if wrote_best:
-            print(f"{args.out} = best-val-AP {best_ap:.4f} weights")
+            log(f"{args.out} = best-val-AP {best_ap:.4f} weights")
         elif os.path.exists(args.out):
-            print(f"no eval beat the recorded best ({best_ap:.4f}); {args.out} left untouched")
+            log(f"no eval beat the recorded best ({best_ap:.4f}); {args.out} left untouched")
         else:
-            print("WARNING: no eval ran and no prior checkpoint exists; nothing written")
-        return 0
-    which = "EMA" if state.ema_params is not None else "raw"
-    save_flax_checkpoint(args.out, trainer.family, state.export_state_dict())
-    print(f"wrote {args.out} ({which} weights)")
+            log("WARNING: no eval ran and no prior checkpoint exists; nothing written")
+    else:
+        which = "EMA" if state.ema_params is not None else "raw"
+        sd = state.export_state_dict()
+        if rank0:
+            save_flax_checkpoint(args.out, trainer.family, sd)
+        log(f"wrote {args.out} ({which} weights)")
+    if mesh is not None:
+        dist.destroy_process_group()
     return 0
 
 

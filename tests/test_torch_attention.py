@@ -79,7 +79,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 PLAN_SHAPES = [
     (8, 257, 16, 64), (1, 257, 16, 64), (2, 17, 2, 32), (1, 1, 16, 64), (3, 197, 12, 64), (1, 600, 2, 64),
-    (8, 600, 16, 64),
+    (8, 600, 16, 64), (8, 257, 8, 64), (4, 257, 16, 64),
 ]
 
 

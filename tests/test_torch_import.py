@@ -49,7 +49,7 @@ def test_port_imports_without_jax():
         "ops.int8_conv", "runtime.native", "runtime.proto3", "runtime.shm", "runtime.batcher",
         "runtime.repository", "runtime.wire", "runtime.server", "runtime.http", "runtime.__main__",
         "runtime.aot", "utils.coordinate", "utils.debug", "parallel.train", "parallel.data",
-        "parallel.checkpoint", "tools.train_detector",
+        "parallel.checkpoint", "tools.train_detector", "parallel.mesh", "parallel.tp",
     ):
         assert f"rs_face_detection_tpu_torch.{name}" in report["modules"]
 
@@ -120,6 +120,7 @@ def test_kernel_card_tests_collect_without_jax():
         "DetectionServer", "ModelRegistry", "standard_registry", "default_registry",
         "MultiScaleDetection", "TTADetection", "VideoPipeline", "load_trained_detector", "eval_wider",
         "quantize_retinaface", "runtime", "export_detector", "load_detector", "Trainer", "train_detector",
+        "initialize_distributed", "make_mesh", "make_tp_vit_fn", "DetectionServer(mesh)",
     ],
 )
 def test_entry_points_default_to_the_card(entry):
@@ -130,7 +131,8 @@ def test_entry_points_default_to_the_card(entry):
     from rs_face_detection_tpu_torch.models import registry
     from rs_face_detection_tpu_torch.models.retinaface import RetinaFace
     from rs_face_detection_tpu_torch.ops import matching, quantize
-    from rs_face_detection_tpu_torch.parallel import train
+    from rs_face_detection_tpu_torch.models.vit import ViT
+    from rs_face_detection_tpu_torch.parallel import mesh, tp, train
     from rs_face_detection_tpu_torch.pipeline import (
         antispoofing,
         detection,
@@ -173,6 +175,11 @@ def test_entry_points_default_to_the_card(entry):
         "load_detector": lambda: aot.load_detector(b""),
         "Trainer": train.Trainer,
         "train_detector": lambda: train_detector.main(["--labels", ckpt, "--images", REPO, "--out", ckpt]),
+        "initialize_distributed": lambda: mesh.initialize_distributed("localhost:1", 1, 0),
+        "make_mesh": mesh.make_mesh,
+        "make_tp_vit_fn": lambda: tp.make_tp_vit_fn(ViT("clip_tiny_test", image_size=32), None),
+        "DetectionServer(mesh)": lambda: detection_server.DetectionServer(
+            fixtures.load_trained_detector(ckpt, device="cpu"), mesh=["cuda", "cuda"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls()

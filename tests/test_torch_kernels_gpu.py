@@ -91,6 +91,16 @@ def test_nms_kernel_matches_plain(cuda, k):
     _check_nms(cuda, boxes, rng.uniform(size=(32, k)) > 0.2, 0.45)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("pattern", ["prefix", "holes", "all"])
+def test_nms_kernel_at_a_replicas_share(cuda, pattern):
+    """(4, 128): one of two replicas' share of a served batch of 8."""
+    rng = np.random.default_rng(4128 + len(pattern))
+    valid = _valid_pattern(rng, pattern, 4, 128)
+    keep = _check_nms(cuda, _sorted_batch(rng, 4, 128), valid, 0.45)
+    assert not keep[~valid].any()
+
+
 def _valid_pattern(rng, pattern, b, k):
     if pattern == "all":
         return np.ones((b, k), bool)
@@ -179,7 +189,7 @@ def _stem_weights(seed):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(8, 640, 640), (2, 72, 96), (3, 70, 34), (1, 2, 2)])
+@pytest.mark.parametrize("shape", [(8, 640, 640), (4, 640, 640), (2, 72, 96), (3, 70, 34), (1, 2, 2)])
 def test_stem_kernel_matches_plain(cuda, shape):
     """K2 against the plain version on the card, TF32 off.  Bound: 1e-5 of
     the output's magnitude (192 exact products of pixel values and split
@@ -214,7 +224,7 @@ def test_stem_kernel_matches_plain(cuda, shape):
 @pytest.mark.parametrize(
     "shape",
     [(8, 257, 16, 64), (1, 257, 16, 64), (2, 17, 2, 32), (1, 1, 16, 64), (3, 197, 12, 64), (1, 600, 2, 64),
-     (8, 600, 16, 64)],
+     (8, 600, 16, 64), (8, 257, 8, 64), (4, 257, 16, 64)],
     ids=str,
 )
 def test_attention_kernel_matches_plain_on_the_card(cuda, shape, dtype):
@@ -222,7 +232,8 @@ def test_attention_kernel_matches_plain_on_the_card(cuda, shape, dtype):
     f32 within 2e-5 of max|v| (sums in another order), bf16 within 1e-2 of
     max|v| (P is rounded to bf16 before PV).  At N = 600 K and V stream
     through the 8-stage ring; (8, 600, 16, 64) streams it over three rounds
-    of 7 warps."""
+    of 7 warps.  (8, 257, 8, 64) is one tensor-parallel rank's heads of the
+    tower at b8 over two ranks, (4, 257, 16, 64) one data rank's rows."""
     arr = np.random.default_rng(5).normal(size=(shape[0], shape[1], 3, *shape[2:]))
     q, k, v = torch.from_numpy(arr).to(cuda, dtype).unbind(2)  # strided views
     before = katt.launches
