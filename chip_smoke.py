@@ -4,8 +4,9 @@ weight-only int8 FaceExtraction, checkpoint serving through the registry,
 offline evaluation and video (multi-scale, TTA, tracking, AP), the
 calibrated int8-activation detector, the gRPC serving runtime, the
 deployment surfaces (REST, the runtime's entry point, AOT artifacts),
-RetinaFace training, and the multi-device paths (replica serving, the FSDP2
-Trainer, the tensor-parallel ViT).
+RetinaFace training, the multi-device paths (replica serving, the FSDP2
+Trainer, the tensor-parallel ViT), the tensor-parallel ViT's artifacts and
+the native library's host entry points.
 
 Run from the root of a checkout, with one card:
 
@@ -258,6 +259,19 @@ and the last line is never printed):
      against the unsharded step (loss and buffers within 1e-5, the
      gathered gradients no farther from float64 than DP_GRAD_FACTOR times
      the unsharded step's);
+ 29. the last port items: (a) two child ranks sharing the card through
+     gloo export the tensor-parallel bf16 clip_l14 of 28 (c) at b8, 224, on
+     the (1, 2) mesh as one artifact (runtime/aot.py::export_tp_vit, the
+     weights outside); two fresh ranks load it (load_tp_vit), prepare the
+     unsharded float32 state, and one counted call of each rank's loaded
+     program launches K4 24 times and is torch.equal to the live
+     make_tp_vit_fn forward; export, load and prepare seconds, the
+     artifact's bytes, loaded against live ms per forward (CUDA events, five
+     windows); (b) runtime/native.py's nms equal to nms_numpy on phase 3's
+     (8, 128) candidates and decode_letterbox equal to row 0 of
+     decode_letterbox_batch on phase 5's first frame as a JPEG, or, where
+     the library does not build, the RuntimeError each raises with the
+     reason;
 then a JSON line of the kernels, with each one's bound on the card, its
 time on the device as ``ms`` and from Python as ``python_ms`` (through
 its custom op; ``wrapper_python_ms`` through the wrapper alone), and
@@ -268,7 +282,9 @@ main paths (phases 5, 9, 15, 18, each counted run of 22, (a)-(c) of 23,
 loaded programs' calls of 26, (f) of 27 and (a) of 28)
 set all four kernels' counts to 0 and read all four after, and the kernels
 line reports exactly those reads; phase 28's ``multi_device`` path adds the
-K4 launches its two ranks count around their forwards of (c).
+K4 launches its two ranks count around their forwards of (c), and phase
+29's ``tp_artifact`` path those its two loading ranks count around one call
+of their loaded programs.
 
 Frames are composited from tests/fixtures/real_face_crop.npz (the face of
 tests/fixtures/real_face.jpg, box (172, 125, 372, 340), resized to 160x160)
@@ -3320,7 +3336,6 @@ def multi_device_phase(dev, card, det_sd, r50_sd, face, train_batches, size=640,
     world = 2
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     work = tempfile.mkdtemp(prefix="multi-", dir=build.BUILD_DIR)
-    procs = []
     try:
         # (a) DetectionServer over replicas: 3 batches of 8 JPEGs.
         jpegs = [cv2.imencode(".jpg", f)[1].tobytes() for f in make_frames(rng, 3 * BATCH, face)]
@@ -3503,22 +3518,8 @@ def multi_device_phase(dev, card, det_sd, r50_sd, face, train_batches, size=640,
         )
 
         # (c) and (d): the two ranks, started once the timings above are done.
-        code = ("import sys; sys.path.insert(0, {!r}); import chip_smoke; "
-                "chip_smoke.multi_rank_child({}, {}, {!r}, {!r}, {!r}, {})")
-        procs = [subprocess.Popen([sys.executable, "-c", code.format(HERE, r, world, work, dev.type, tower, size)],
-                                  cwd=HERE,
-                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(world)]
-        outs = []
-        for r, proc in enumerate(procs):
-            try:
-                out, err = proc.communicate(timeout=600)
-            except subprocess.TimeoutExpired:
-                raise SmokeFailure(f"phase 28: rank {r} passed its 600 s deadline") from None
-            if proc.returncode != 0:
-                print(out[-3000:] + err[-6000:], file=sys.stderr)
-            check(proc.returncode == 0, f"phase 28: rank {r} exited {proc.returncode}")
-            with open(os.path.join(work, f"rank{r}.json")) as f:
-                outs.append(json.load(f))
+        outs = run_rank_children("multi_rank_child", (world, work, dev.type, tower, size), world, work, 600,
+                                 "phase 28")
         r0 = outs[0]
         tp_launches = sum(o["k4_f32"] + o["k4_bf16"] for o in outs)
         print(
@@ -3567,15 +3568,222 @@ def multi_device_phase(dev, card, det_sd, r50_sd, face, train_batches, size=640,
         check(e_dp <= DP_GRAD_FACTOR * e_card,
               f"phase 28 (d): gradients {e_dp} from float64 > {DP_GRAD_FACTOR} x the unsharded step's {e_card}")
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait(timeout=30)
         shutil.rmtree(work, ignore_errors=True)
     counts["flash_attention"] += tp_launches
     print(f"phase 28 multi-device: {time.perf_counter() - t_phase:.1f} s in all; launches {counts} {card}")
     return {"counts": counts, "k4_local": {"ms": k4_local[0], "library_ms": sdpa_local[0], "plain_ms":
                                            plain_local[0], "bound_ms": local_bound[0]}}
+
+
+def run_rank_children(name, args, world, work, timeout, what):
+    """``chip_smoke.<name>(rank, *args)`` in ``world`` child processes at
+    once; each must exit 0 within ``timeout`` seconds of the start, or all
+    are killed and the phase fails.  Returns each rank's
+    ``work``/rank<rank>.json."""
+    code = "import sys; sys.path.insert(0, {!r}); import chip_smoke; chip_smoke.{}({}, *{!r})"
+    procs = [subprocess.Popen([sys.executable, "-c", code.format(HERE, name, r, tuple(args))], cwd=HERE,
+                              stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        outs = []
+        for r, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{what}: rank {r} passed its {timeout} s deadline") from None
+            if proc.returncode != 0:
+                print(out[-3000:] + err[-6000:], file=sys.stderr)
+            check(proc.returncode == 0, f"{what}: rank {r} exited {proc.returncode}")
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                outs.append(json.load(f))
+        return outs
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+
+
+def tp_artifact_child(rank, world, work, role, device="cuda", tower="clip_l14", size=224):
+    """Phase 29 (a) in rank ``rank`` of ``world`` processes that share the
+    card through gloo, on the (1, world) mesh, TF32 off.  ``role`` "export":
+    the tensor-parallel bf16 ``tower`` on phase 28 (c)'s seeded weights
+    through runtime/aot.py::export_tp_vit at b8 (a collective; rank 0 writes
+    the artifact to ``work``/tp_vit.rsfd).  "load": a fresh process that
+    builds the mesh as the exporting ones did, loads that artifact, prepares
+    the unsharded float32 state, counts the K4 launches of one call of the
+    loaded program (after a warm-up, so K4's first launch in the process
+    comes from inside the program), holds its output torch.equal to the
+    live forward (make_tp_vit_fn) and times both.  Writes
+    ``work``/<role>/rank<rank>.json."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from rs_face_detection_tpu_torch.kernels import attention as katt
+    from rs_face_detection_tpu_torch.models import weights
+    from rs_face_detection_tpu_torch.models.vit import cast_for_serving
+    from rs_face_detection_tpu_torch.parallel.mesh import make_mesh
+    from rs_face_detection_tpu_torch.parallel.tp import make_tp_vit_fn
+    from rs_face_detection_tpu_torch.runtime.aot import export_tp_vit, load_tp_vit
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    out_dir = os.path.join(work, role)
+    dist.init_process_group("gloo", init_method="file://" + os.path.join(out_dir, "store"), world_size=world, rank=rank)
+    dev = torch.device("cuda", torch.cuda.current_device()) if cuda else torch.device(device)
+    # device="cpu" rehearses the control flow: nothing is timed there.
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    timed = cuda_ms if cuda else (lambda fn, iters, windows=5: None)
+    mesh = make_mesh(world, model_parallel=world, device=device)
+    sd = weights.init_state(tower, SEED, 2)
+    model = cast_for_serving(weights.load_model(tower, sd, softmax=False))
+    path = os.path.join(work, "tp_vit.rsfd")
+    res = {"device": str(dev)}
+    if role == "export":
+        t0 = time.perf_counter()
+        blob = export_tp_vit(model, mesh, BATCH, (size, size), device=dev)
+        res["export_s"] = time.perf_counter() - t0
+        res["bytes"], res["sha256"] = len(blob), hashlib.sha256(blob).hexdigest()
+        if rank == 0:
+            with open(path, "wb") as f:
+                f.write(blob)
+    else:
+        with open(path, "rb") as f:
+            blob = f.read()
+        t0 = time.perf_counter()
+        loaded = load_tp_vit(blob, mesh, device=dev)
+        res["load_s"] = time.perf_counter() - t0
+        entry = next(m for m in loaded.meta["ranks"] if m["coordinate"] == loaded.coordinate)
+        res["groups"] = {axis: g["name"] for axis, g in entry["groups"].items()}
+        t0 = time.perf_counter()
+        loaded.prepare_state(sd)
+        sync()
+        res["prepare_s"] = time.perf_counter() - t0
+        x = torch.from_numpy(np.random.default_rng(SEED + 29).normal(size=(BATCH, 3, size, size)).astype(np.float32))
+        loaded(sd, x)  # warm-up
+        sync()
+        katt.launches = 0
+        got = loaded(sd, x)
+        sync()
+        res["k4"] = katt.launches
+        fn, _ = make_tp_vit_fn(model, mesh, device=dev)
+        live = fn(x)
+        sync()
+        res["equal"] = bool(torch.equal(got, live))
+        res["max_diff"] = float((got.float() - live.float()).abs().max())
+        res["shape"] = list(got.shape)
+        res["loaded_ms"] = timed(lambda: loaded(sd, x), 2)
+        res["live_ms"] = timed(lambda: fn(x), 2)
+        res["loaded_ms2"] = timed(lambda: loaded(sd, x), 2)
+        if rank == 0:
+            with torch.no_grad():
+                ref = model.to(dev)(x.to(dev)).float()
+            res["finite"] = bool(torch.isfinite(got).all())
+            res["prob_err"] = float((torch.softmax(got.float(), -1) - torch.softmax(ref, -1)).abs().max())
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def tp_artifact_phase(dev, card, p29, tower="clip_l14", size=224):
+    """Phase 29: the last port items on the card.  (a) the tensor-parallel
+    tower's artifact (runtime/aot.py::export_tp_vit / load_tp_vit): two
+    ranks sharing the card through gloo export it, two fresh ones load it
+    (``tp_artifact_child``); each loaded program torch.equal to the live
+    forward, 24 K4 launches per rank inside it.  (b) the native library's
+    host entry points (runtime/native.py::nms, decode_letterbox) against
+    nms_numpy and decode_letterbox_batch on phase 3's candidates and phase
+    5's first frame as a JPEG; where the library does not build, the
+    RuntimeError each raises.  Returns the counts of (a)."""
+    import shutil
+    import tempfile
+
+    import cv2
+    import numpy as np
+
+    from rs_face_detection_tpu_torch.kernels import build
+    from rs_face_detection_tpu_torch.ops.nms import nms_numpy
+    from rs_face_detection_tpu_torch.runtime import native
+
+    t_phase = time.perf_counter()
+    world = 2
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = tempfile.mkdtemp(prefix="tp-aot-", dir=build.BUILD_DIR)
+    try:
+        outs = {}
+        for role in ("export", "load"):
+            os.makedirs(os.path.join(work, role))
+            outs[role] = run_rank_children("tp_artifact_child", (world, work, role, dev.type, tower, size), world,
+                                           os.path.join(work, role), 600, f"phase 29 (a) {role}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    exp, load = outs["export"], outs["load"]
+    r0 = load[0]
+
+    def seconds(key, ranks):
+        return ", ".join(f"{o[key]:.2f}" for o in ranks)
+
+    print(
+        f"phase 29 (a) tensor-parallel {tower} artifact (runtime/aot.py::export_tp_vit / load_tp_vit, torch.export), "
+        f"bf16, seeded, b{BATCH} at {size}, (1, {world}) mesh, {world} ranks sharing {r0['device']} through gloo: "
+        f"export {seconds('export_s', exp)} s per rank, one artifact of {exp[0]['bytes']} bytes (weights outside); "
+        f"fresh ranks load it in {seconds('load_s', load)} s and prepare the unsharded float32 state in "
+        f"{seconds('prepare_s', load)} s (groups {[o['groups'] for o in load]}); K4 launches per rank inside one "
+        f"call of the loaded program "
+        f"{[o['k4'] for o in load]}; loaded torch.equal to the live forward on every rank "
+        f"{[o['equal'] for o in load]} (max abs diff {max(o['max_diff'] for o in load):.3g}); probabilities "
+        f"{r0.get('prob_err', float('nan')):.3g} from the unsharded bf16 tower (<= 1e-2); ms per forward (CUDA events, "
+        f"rank 0, host collectives included) loaded {fmt_ms(r0['loaded_ms'])}, live {fmt_ms(r0['live_ms'])}, "
+        f"loaded again {fmt_ms(r0['loaded_ms2'])} {card}"
+    )
+    check(len({o["sha256"] for o in exp}) == 1, "phase 29 (a): the ranks exported different bytes")
+    check(all(o["k4"] == 24 for o in load), f"phase 29 (a): K4 launches {[o['k4'] for o in load]}, want 24 per rank")
+    check(all(o["equal"] and o["shape"] == [BATCH, 2] for o in load),
+          f"phase 29 (a): loaded != live, max abs diff {[o['max_diff'] for o in load]}")
+    check(r0["finite"] and r0["prob_err"] <= 1e-2, f"phase 29 (a): probabilities {r0['prob_err']} from the unsharded")
+
+    # (b) the native host entry points.
+    reason = native.unavailable_reason()
+    jpeg = cv2.imencode(".jpg", p29["frame"], [cv2.IMWRITE_JPEG_QUALITY, 90])[1].tobytes()
+    cand = p29["real_cand"]
+    dets = [np.concatenate([b, s[:, None]], 1) for b, s in zip(cand.boxes.cpu().numpy(), cand.scores.cpu().numpy())]
+    width, height = p29["size"]
+    if reason is None:
+        keeps = [native.nms(d, 0.45) for d in dets]
+        nms_equal = keeps == [nms_numpy(d, 0.45) for d in dets]
+        one, scale = native.decode_letterbox(jpeg, width, height)
+        imgs, scales, ok = native.decode_letterbox_batch([jpeg], width, height)
+        decode_equal = bool(ok[0]) and np.array_equal(one, imgs[0]) and scale == float(scales[0])
+        check(nms_equal and decode_equal, f"phase 29 (b): nms equal {nms_equal}, decode_letterbox equal {decode_equal}")
+        print(
+            f"phase 29 (b) native host entry points: nms on the {len(dets)} images' (128, 5) candidates at 0.45 equal to "
+            f"nms_numpy ({sum(map(len, keeps))} kept); decode_letterbox of phase 5's first frame as a JPEG at "
+            f"{width}x{height} equal to row 0 of decode_letterbox_batch, scale {scale:.6f} {card}"
+        )
+    else:
+        raised = []
+        for call in (lambda: native.nms(dets[0], 0.45), lambda: native.decode_letterbox(jpeg, width, height)):
+            try:
+                call()
+                raised.append(None)
+            except RuntimeError as e:
+                raised.append(str(e))
+        check(all(r is not None and reason in r for r in raised), f"phase 29 (b): {raised}")
+        print(f"phase 29 (b) native host entry points: the library does not build here ({reason}); nms and "
+              f"decode_letterbox raise RuntimeError with that reason, load() returns None {card}")
+    counts = {name: 0 for name in kernel_counters()}
+    counts["flash_attention"] = sum(o["k4"] for o in load)
+    print(f"phase 29 TP artifacts and native host entry points: {time.perf_counter() - t_phase:.1f} s in all; "
+          f"launches {counts} {card}")
+    return {"tp_artifact": counts}
 
 
 def gpu_tests_phase(card):
@@ -4054,6 +4262,8 @@ def main() -> int:
     multi = multi_device_phase(dev, card, det_sd, r50_sd, face, train_batches)
     by_path["multi_device"] = multi["counts"]
     del train_batches
+    by_path.update(tp_artifact_phase(dev, card, {"real_cand": real_cand, "frame": frames[0],
+                                                 "size": cfg.detection.image_size}))
     torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved_tf32
     jax_mods = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax"))
     check(not jax_mods, f"JAX was imported: {jax_mods[:5]}")

@@ -145,6 +145,34 @@ def shard_vit(model: ViT, mesh: DeviceMesh, device: DeviceLike = "cuda") -> ViT:
     return sharded.to(dev).eval()
 
 
+class TPViTForward(nn.Module):
+    """One rank's program of the tensor-parallel forward: its data index's
+    rows of the whole batch (``data_rows``), the rank's shards of the tower
+    (``model``, from ``shard_vit`` on ``device``), then the gather over
+    "data".  The live function of ``make_tp_vit_fn`` and the exported
+    program of runtime/aot.py::export_tp_vit both run it."""
+
+    def __init__(self, model: ViT, mesh: DeviceMesh, device: DeviceLike = "cuda") -> None:
+        super().__init__()
+        dev = resolve_device(device)
+        if mesh.device_type != dev.type:
+            raise ValueError(f"a mesh of {mesh.device_type} devices for a ViT on {dev}")
+        cfg = CONFIGS[model.config]
+        check_tp_compatible(cfg.heads, cfg.width * 4, mesh)
+        self.model = shard_vit(model, mesh, dev)
+        self.mesh = mesh
+        self.data = axis_size(mesh, "data")
+        self.data_group = mesh.get_group("data") if self.data > 1 else None
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        out = self.model(images[data_rows(self.mesh, images.shape[0])]).contiguous()
+        if self.data_group is None:
+            return out
+        parts = [torch.empty_like(out) for _ in range(self.data)]
+        dist.all_gather(parts, out, group=self.data_group)
+        return torch.cat(parts)
+
+
 def make_tp_vit_fn(
     model: ViT, mesh: DeviceMesh, device: DeviceLike = "cuda"
 ) -> Tuple[Callable[[torch.Tensor], torch.Tensor], ViT]:
@@ -156,25 +184,13 @@ def make_tp_vit_fn(
     index's rows through the rank's shards (one all-reduce after
     ``out_proj`` and one after ``c_proj`` in each block: 2 per block, the
     Megatron schedule) and returns the whole batch's (B, classes) output on
-    every rank, gathered over "data".
+    every rank, gathered over "data" (``TPViTForward``).
     """
     dev = resolve_device(device)
-    if mesh.device_type != dev.type:
-        raise ValueError(f"a mesh of {mesh.device_type} devices for a ViT on {dev}")
-    cfg = CONFIGS[model.config]
-    check_tp_compatible(cfg.heads, cfg.width * 4, mesh)
-    sharded = shard_vit(model, mesh, dev)
-    data = axis_size(mesh, "data")
-    data_group = mesh.get_group("data") if data > 1 else None
+    forward = TPViTForward(model, mesh, dev)
 
     def fn(images: torch.Tensor) -> torch.Tensor:
-        x = to_device(images[data_rows(mesh, images.shape[0])], dev)
         with torch.no_grad():
-            out = sharded(x).contiguous()
-        if data_group is None:
-            return out
-        parts = [torch.empty_like(out) for _ in range(data)]
-        dist.all_gather(parts, out, group=data_group)
-        return torch.cat(parts)
+            return forward(to_device(images, dev))
 
-    return fn, sharded
+    return fn, forward.model

@@ -1,7 +1,9 @@
-"""Ahead-of-time serving artifacts: the detect graph and the heads through torch.export.
+"""Ahead-of-time serving artifacts: the detect graph, the heads and the
+tensor-parallel ViT through torch.export.
 
 The port of rs_face_detection_tpu/runtime/aot.py (``export_detector`` /
-``load_detector``, ``export_model`` / ``load_model``).  A deployment keeps
+``load_detector``, ``export_model`` / ``load_model``, ``export_tp_vit`` /
+``load_tp_vit``).  A deployment keeps
 compiled programs apart from their weights, as a Triton model repository
 does: ``export_detector`` serialises the whole batched detect graph --
 letterboxed uint8 canvases and their scales in; the network, the stable
@@ -29,8 +31,15 @@ dict's identity), as JAX's ``prepare_variables`` does.
 Shapes are static: one artifact per batch size.  The detector's layout is
 the natural (B, H, W, 3) uint8 one (meta ``layout`` "none"); its stem is
 the fused stem K2 for a float s2d ResNet-50 (``stem`` "fused") and the
-module's own otherwise ("module").  JAX's s4d layouts, its bf16 pre-cast
-export and its sharded ViT artifacts are not ported.  An artifact exported
+module's own otherwise ("module").  JAX's s4d layouts and its bf16 pre-cast
+export are not ported.
+
+The tensor-parallel ViT (parallel/tp.py) exports one program per rank of a
+("data", "model") mesh, each with its collectives as ``_c10d_functional``
+nodes that name their process group by string, gathered into one artifact
+(format ``rsfd-aot-tp-vit-v1``); ``load_tp_vit`` binds a rank's program to
+a live mesh only where the shape, the axes and the group names agree with
+the exporting ranks' (JAX refuses another mesh shape).  An artifact exported
 on one device loads onto another (``torch.export.passes.
 move_to_device_pass``): loading takes the card unless given ``device="cpu"``,
 so an artifact exported on the CPU serves on the card.
@@ -41,10 +50,11 @@ from __future__ import annotations
 import io
 import json
 import zipfile
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from .. import __version__
@@ -52,6 +62,8 @@ from ..utils.device import DeviceLike, resolve_device
 
 DETECTOR_FORMAT = "rsfd-aot-v1"
 MODEL_FORMAT = "rsfd-aot-model-v1"
+TP_VIT_FORMAT = "rsfd-aot-tp-vit-v1"
+TP_VIT_RANK_FORMAT = "rsfd-aot-tp-vit-rank-v1"
 META_FILE = "rsfd_meta.json"
 
 
@@ -99,7 +111,8 @@ def _leaves(state: Dict[str, torch.Tensor]):
     return [[k, list(v.shape), str(v.dtype).replace("torch.", "")] for k, v in state.items()]
 
 
-def _export(fn, state, inputs, meta) -> bytes:
+def _export(fn, state, inputs, meta) -> Tuple[bytes, Dict[str, Any]]:
+    """The saved program of ``fn(state, *inputs)`` and its meta."""
     program = _Program(fn)
     with torch.no_grad():
         ep = torch.export.export(program, (state, *inputs))
@@ -108,7 +121,7 @@ def _export(fn, state, inputs, meta) -> bytes:
                 device=str(inputs[0].device), state=_leaves(state))
     buf = io.BytesIO()
     torch.export.save(ep, buf, extra_files={META_FILE: json.dumps(meta)})
-    return buf.getvalue()
+    return buf.getvalue(), meta
 
 
 def _image_size(detector) -> Tuple[int, int]:
@@ -146,7 +159,7 @@ def export_detector(detector, batch_size: int = 8) -> bytes:
         "detector": type(detector).__name__,
         "backbone": getattr(getattr(detector, "cfg", None), "backbone", None),
     }
-    return _export(detect, state, (imgs, scales), meta)
+    return _export(detect, state, (imgs, scales), meta)[0]
 
 
 def export_model(
@@ -173,7 +186,7 @@ def export_model(
             "batch_shape": list(batch_shape),
             "dtype": str(dtype).replace("torch.", ""),
         }
-        return _export(lambda state, x: torch.func.functional_call(module, state, (x,)), state, (batch,), meta)
+        return _export(lambda state, x: torch.func.functional_call(module, state, (x,)), state, (batch,), meta)[0]
     finally:
         module.train(was_training)
 
@@ -192,11 +205,13 @@ def _read_meta(blob: bytes, fmt: str) -> Dict[str, Any]:
 
 
 class _Loaded:
-    """A deserialised artifact; call with (state_dict, *inputs)."""
+    """A deserialised artifact; call with (state_dict, *inputs).  ``meta``
+    is given where ``blob`` is one program of a larger artifact (a rank's
+    program of the TP ViT) and read from ``blob`` otherwise."""
 
-    def __init__(self, blob: bytes, fmt: str, device: DeviceLike) -> None:
+    def __init__(self, blob: bytes, fmt: str, device: DeviceLike, meta: Optional[Dict[str, Any]] = None) -> None:
         self.device = resolve_device(device)
-        self.meta = _read_meta(blob, fmt)
+        self.meta = _read_meta(blob, fmt) if meta is None else meta
         program = torch.export.load(io.BytesIO(blob))
         if self.device != resolve_device(self.meta["device"]):
             from torch.export.passes import move_to_device_pass
@@ -276,3 +291,171 @@ def load_model(blob: bytes, device: DeviceLike = "cuda") -> LoadedModel:
     """Re-hydrate an ``export_model`` artifact on ``device`` (the card by
     default)."""
     return LoadedModel(blob, device)
+
+
+# -- the tensor-parallel ViT: one artifact for a mesh, one program per rank --
+
+
+def _program_file(coordinate: Sequence[int]) -> str:
+    return "program_" + "_".join(str(int(c)) for c in coordinate) + ".pt2"
+
+
+def _mesh_groups(mesh) -> Dict[str, Dict[str, Any]]:
+    """This rank's process group on each axis of the mesh: its name (the
+    string an exported collective binds to at run time) and its ranks."""
+    groups = {}
+    for axis in mesh.mesh_dim_names:
+        group = mesh.get_group(axis)
+        groups[axis] = {"name": group.group_name, "ranks": dist.get_process_group_ranks(group)}
+    return groups
+
+
+def _gather_over_mesh(item, mesh) -> list:
+    """Every mesh rank's ``item`` on every rank of the mesh: gathered over
+    each axis in turn, innermost first."""
+    items = [item]
+    for axis in reversed(mesh.mesh_dim_names):
+        group = mesh.get_group(axis)
+        parts = [None] * dist.get_world_size(group)
+        dist.all_gather_object(parts, items, group=group)
+        items = [x for part in parts for x in part]
+    return items
+
+
+def export_tp_vit(
+    model: nn.Module,
+    mesh,
+    batch_size: int,
+    image_size: Sequence[int] = (224, 224),
+    device: DeviceLike = "cuda",
+) -> bytes:
+    """Serialise the tensor-parallel ViT forward of a ("data", "model") mesh;
+    a collective: every rank of the mesh calls it, and each gets the same
+    bytes.
+
+    Each rank exports the program ``make_tp_vit_fn`` runs on it
+    (parallel/tp.py::TPViTForward): its data index's rows of the whole
+    batch, its shards with the two all-reduces over "model" per block, K4
+    as one ``rsfd::attention`` node per block, the gather over "data".  The
+    program takes the rank's local shards as its first input, so no weight
+    is inside the artifact, and its coordinate is a constant of it, so the
+    programs differ per rank: they are gathered into one artifact (a zip of
+    ``rsfd_meta.json`` and one ``torch.export`` program per coordinate).
+    The meta holds JAX's fields (config, classes, batch, image size, mesh
+    shape and axes, device count), the image layout ("nchw": (B, 3, S, S)
+    float32, where JAX's images are (B, S, S, 3)) and per rank its
+    coordinate, its device, its state leaves and the names of its process
+    groups, which the exported collectives bind to.  The zip's entries carry
+    a fixed date, so the bytes depend only on the programs and the meta.
+    ``device``: this rank's (the card unless the caller asks for the CPU)."""
+    from ..parallel.mesh import axis_size
+    from ..parallel.tp import TPViTForward
+
+    dev = resolve_device(device)
+    data = axis_size(mesh, "data")
+    if batch_size % data:
+        raise ValueError(f"batch {batch_size} not divisible by data axis {data}")
+    coordinate = mesh.get_coordinate()
+    if coordinate is None:
+        raise ValueError("this rank is not in the mesh")
+    forward = TPViTForward(model, mesh, dev).eval()
+    state = _state_of(forward.model)
+    width, height = image_size
+    images = torch.zeros((batch_size, 3, height, width), dtype=torch.float32, device=dev)
+
+    def program(state, images):
+        return torch.func.functional_call(forward, {f"model.{k}": v for k, v in state.items()}, (images,))
+
+    rank_meta = {"format": TP_VIT_RANK_FORMAT, "coordinate": [int(c) for c in coordinate],
+                 "groups": _mesh_groups(mesh)}
+    program_bytes, rank_meta = _export(program, state, (images,), rank_meta)
+    gathered = sorted(_gather_over_mesh((rank_meta, program_bytes), mesh), key=lambda x: x[0]["coordinate"])
+    meta = {
+        "format": TP_VIT_FORMAT,
+        "framework_version": __version__,
+        "torch_version": torch.__version__,
+        "config": model.config,
+        "num_classes": model.head.out_features,
+        "batch_size": batch_size,
+        "image_size": [width, height],
+        "layout": "nchw",
+        "dtype": "float32",
+        "mesh_shape": {axis: axis_size(mesh, axis) for axis in mesh.mesh_dim_names},
+        "mesh_axes": list(mesh.mesh_dim_names),
+        "nr_devices": mesh.size(),
+        "ranks": [{k: m[k] for k in ("coordinate", "device", "state", "groups")} for m, _ in gathered],
+    }
+    files = [(META_FILE, json.dumps(meta).encode())]
+    files += [(_program_file(m["coordinate"]), program_bytes) for m, program_bytes in gathered]
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as z:
+        for name, data in files:
+            info = zipfile.ZipInfo(name, date_time=(1980, 1, 1, 0, 0, 0))
+            info.external_attr = 0o644 << 16
+            z.writestr(info, data)
+    return buf.getvalue()
+
+
+class LoadedTPViT(_Loaded):
+    """This rank's program of an ``export_tp_vit`` artifact, bound to a live
+    mesh of the same shape, axes and process groups.
+
+    Call with ``(state_dict, images)``: the UNSHARDED state dict of the
+    tower (``prepare_state`` takes the rank's shards of it under the
+    Megatron rule, checks them against the artifact and moves them to the
+    device, once per state dict) and the whole (B, 3, S, S) batch on every
+    rank; returns the whole (B, classes) output on every rank, as JAX's
+    ``LoadedTPViT`` does.  Every rank of the mesh calls it together."""
+
+    def __init__(self, blob: bytes, mesh, device: DeviceLike = "cuda") -> None:
+        from ..parallel.mesh import axis_size
+
+        device = resolve_device(device)
+        meta = _read_meta(blob, TP_VIT_FORMAT)
+        shape = {axis: axis_size(mesh, axis) for axis in mesh.mesh_dim_names}
+        if shape != meta["mesh_shape"]:
+            raise ValueError(f"artifact was exported for mesh {meta['mesh_shape']}, got {shape}")
+        if list(mesh.mesh_dim_names) != meta["mesh_axes"]:
+            raise ValueError(f"artifact was exported for mesh axes {meta['mesh_axes']}, "
+                             f"got {list(mesh.mesh_dim_names)}")
+        if mesh.device_type != device.type:
+            raise ValueError(f"a mesh of {mesh.device_type} devices for a program on {device}")
+        coordinate = mesh.get_coordinate()
+        if coordinate is None:
+            raise ValueError("this rank is not in the mesh")
+        coordinate = [int(c) for c in coordinate]
+        entry = next(m for m in meta["ranks"] if m["coordinate"] == coordinate)
+        groups = _mesh_groups(mesh)
+        for axis, want in entry["groups"].items():
+            got = groups[axis]
+            if got != want:
+                raise ValueError(
+                    f"the {axis!r} process group of this rank is {got['name']!r} (ranks {got['ranks']}), the "
+                    f"program was exported against {want['name']!r} (ranks {want['ranks']}): build the meshes "
+                    "in the order the exporting processes built them")
+        with zipfile.ZipFile(io.BytesIO(blob)) as z:
+            program_bytes = z.read(_program_file(coordinate))
+        super().__init__(program_bytes, TP_VIT_FORMAT, device, dict(meta, device=entry["device"], state=entry["state"]))
+        self.mesh = mesh
+        self.coordinate = coordinate
+
+    def prepare_state(self, state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The rank's shards of an unsharded state dict
+        (parallel/tp.py::tp_shard_view), checked against the artifact's
+        leaves (a wrong shape names its leaf) and cast to the traced dtype on
+        the program's device: JAX's ``prepare_variables``."""
+        from ..parallel.tp import tp_shard_view
+
+        return super().prepare_state(tp_shard_view({k: torch.as_tensor(v) for k, v in state.items()}, self.mesh))
+
+    def __call__(self, state_dict, images) -> torch.Tensor:
+        return self._call(state_dict, images)
+
+
+def load_tp_vit(blob: bytes, mesh, device: DeviceLike = "cuda") -> LoadedTPViT:
+    """Re-hydrate this rank's program of an ``export_tp_vit`` artifact onto a
+    mesh of the same shape and axes whose process groups were built in the
+    same order as the exporting processes built theirs (``make_mesh``, the
+    meshes in the same order); ValueError otherwise.  On ``device``: the
+    card unless the caller asks for the CPU."""
+    return LoadedTPViT(blob, mesh, device)

@@ -120,7 +120,8 @@ def test_kernel_card_tests_collect_without_jax():
         "DetectionServer", "ModelRegistry", "standard_registry", "default_registry",
         "MultiScaleDetection", "TTADetection", "VideoPipeline", "load_trained_detector", "eval_wider",
         "quantize_retinaface", "runtime", "export_detector", "load_detector", "Trainer", "train_detector",
-        "initialize_distributed", "make_mesh", "make_tp_vit_fn", "DetectionServer(mesh)",
+        "initialize_distributed", "make_mesh", "make_tp_vit_fn", "DetectionServer(mesh)", "export_tp_vit",
+        "load_tp_vit",
     ],
 )
 def test_entry_points_default_to_the_card(entry):
@@ -180,6 +181,8 @@ def test_entry_points_default_to_the_card(entry):
         "make_tp_vit_fn": lambda: tp.make_tp_vit_fn(ViT("clip_tiny_test", image_size=32), None),
         "DetectionServer(mesh)": lambda: detection_server.DetectionServer(
             fixtures.load_trained_detector(ckpt, device="cpu"), mesh=["cuda", "cuda"]),
+        "export_tp_vit": lambda: aot.export_tp_vit(ViT("clip_tiny_test", image_size=32), None, 8, (32, 32)),
+        "load_tp_vit": lambda: aot.load_tp_vit(b"", None),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cls()
