@@ -12,6 +12,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils import tracing
+
 
 def _whctr(boxes: torch.Tensor):
     widths = boxes[..., 2] - boxes[..., 0] + 1.0
@@ -55,6 +57,7 @@ def clip_boxes(boxes: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
         dtype=boxes.dtype,
         device=boxes.device,
     )
+    tracing.host_sync(boxes.device)
     return torch.minimum(torch.clamp(boxes, min=0.0), bound)
 
 

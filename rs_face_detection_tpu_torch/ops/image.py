@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import tracing
+
 
 def letterbox_geometry(
     src_h: int, src_w: int, dst_w: int, dst_h: int
@@ -107,6 +109,7 @@ def resize_u8_linear(img_u8: torch.Tensor, out_h: int, out_w: int) -> torch.Tens
     dev = img_u8.device
     x0, x1, a0, a1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(src_w, out_w, True))
     y0, y1, b0, b1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(src_h, out_h, False))
+    tracing.host_sync(dev, 8)
 
     def horizontal(rows: torch.Tensor) -> torch.Tensor:  # (out_h, W, C) -> (out_h, out_w, C)
         src = rows.to(torch.int32)
@@ -205,6 +208,7 @@ def normalize(
     """Per-channel (px - mean) * scale on an (..., 3) float image."""
     mean_t = torch.tensor(mean, dtype=img.dtype, device=img.device)
     scale_t = torch.tensor(scale, dtype=img.dtype, device=img.device)
+    tracing.host_sync(img.device, 2)
     return (img - mean_t) * scale_t
 
 

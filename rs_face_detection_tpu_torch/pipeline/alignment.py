@@ -17,6 +17,7 @@ from ..configs import FaceAlignmentConfig
 
 from ..ops.image import crop_resize, warp_affine
 from ..ops.umeyama import umeyama_similarity_np
+from ..utils import tracing
 
 
 class FaceAlignment:
@@ -76,6 +77,8 @@ class FaceAlignment:
         matrix = self.estimate(landmarks) if landmarks is not None else None
         if matrix is not None:
             m = torch.from_numpy(matrix).to(img.device)
+            tracing.host_sync(img.device)
             return warp_affine(img[None], m[None], out_h, out_w)[0]
         box = torch.from_numpy(self._crop_box(img.shape, bbox)).to(img.device)
+        tracing.host_sync(img.device)
         return crop_resize(img, box, out_h, out_w)

@@ -45,6 +45,7 @@ from ..ops.box_decode import bbox_pred, clip_boxes, landmark_pred
 from ..ops.image import bgr_to_rgb, letterbox, normalize
 from ..ops.nms import nms_mask
 from ..ops.stem import fold_stem_params, fused_stem
+from ..utils import tracing
 from ..utils.device import DeviceLike, resolve_device, to_device
 
 
@@ -69,6 +70,7 @@ def stable_topk(scores: torch.Tensor, cfg: FaceDetectionConfig):
     """Confidence filter, then the top max_candidates of (B, K) scores in a
     stable order: (top scores, -inf where invalid; their indices; valid)."""
     neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device)
+    tracing.host_sync(scores.device)
     masked = torch.where(scores >= cfg.confidence_threshold, scores, neg_inf)
     k = min(cfg.max_candidates, scores.shape[1])
     sorted_scores, order = torch.sort(masked, dim=1, descending=True, stable=True)
@@ -99,6 +101,7 @@ def select_candidates(
     k = top_idx.shape[1]
 
     bbox_stds = torch.tensor(cfg.bbox_stds, dtype=torch.float32, device=scores.device)
+    tracing.host_sync(scores.device)
     anchor_sel = anchors[top_idx]  # (B, k, 4)
     deltas = torch.gather(bbox_raw, 1, top_idx[..., None].expand(-1, -1, 4)) * bbox_stds
     boxes = clip_boxes(bbox_pred(anchor_sel, deltas), (height, width))
@@ -268,15 +271,23 @@ class RetinaFaceDetection:
             cand = select_candidates(net_out, self.anchors, self.level_info, self.cfg)
             padded = nms_and_compact(cand, self.cfg)
         inv = torch.tensor([1.0 / det_scale], dtype=torch.float32, device=self.device)
+        tracing.host_sync(self.device)
         out = descale(padded, inv)
         return PaddedDetections(out.det[0], out.kps[0], out.count[0])
 
     def __call__(self, image_bgr_u8) -> Tuple[np.ndarray, np.ndarray]:
-        start = time.perf_counter()
-        out = self.detect_padded(image_bgr_u8)
-        n = int(out.count)
-        det, kps = out.det[:n].cpu().numpy(), out.kps[:n].cpu().numpy()
-        self.record_traffic(1, time.perf_counter() - start)
+        """Under a ``detect`` span (utils/tracing.py) whose clock reads the
+        registry's statistics share, with CUDA events from the first launch
+        to just before the host copies."""
+        start = time.perf_counter_ns()
+        with tracing.span("detect", start, self.device) as sp:
+            out = self.detect_padded(image_bgr_u8)
+            sp.device_end()
+            n = int(out.count)
+            det, kps = out.det[:n].cpu().numpy(), out.kps[:n].cpu().numpy()
+            tracing.host_sync(self.device, 3)
+            end = sp.end(time.perf_counter_ns())
+        self.record_traffic(1, (end - start) * 1e-9)
         return det, kps
 
     def record_traffic(self, n_images: int, duration_s: float) -> None:

@@ -31,6 +31,7 @@ from ..configs import FacePipelineConfig, FaceQualityClass
 
 from ..models.registry import ModelRegistry, registry_on
 from ..ops.image import bgr_to_rgb, letterbox_u8_batch, normalize, resize_bilinear, warp_affine
+from ..utils import tracing
 from ..utils.device import DeviceLike, resolve_device, to_device
 from ..utils.image_io import decode_image_bytes
 from .alignment import FaceAlignment
@@ -123,26 +124,47 @@ class FacePipeline:
 
     def extract(self, im_bytes: bytes) -> FaceExtractionResult:
         """Decode bytes -> detect -> select -> align -> quality -> embed."""
-        return self.extract_image(decode_image_bytes(im_bytes))
+        with tracing.span("pipeline.extract") as top:
+            with tracing.span("pipeline.decode"):
+                image = decode_image_bytes(im_bytes)
+            return self._extract_image(image, top)
 
     def extract_image(self, image_bgr: np.ndarray) -> FaceExtractionResult:
         """extract() for an already-decoded (H, W, 3) uint8 BGR image."""
+        with tracing.span("pipeline.extract") as top:
+            return self._extract_image(image_bgr, top)
+
+    def _extract_image(self, image_bgr: np.ndarray, top) -> FaceExtractionResult:
+        """The single-image path under its ``pipeline.extract`` span, in the
+        batch path's stages: the frame's upload is its letterbox (the
+        letterbox itself runs inside the detector, whose host call is the
+        ``detect`` span), and the alignment's warp is in the heads."""
+        top.set("images", 1)
         result = FaceExtractionResult()
-        img = to_device(image_bgr, self.device)
+        with tracing.span("pipeline.letterbox"):
+            img = to_device(image_bgr, self.device)
         detections, key_points = self.face_detection(img)
         result.face_count = int(detections.shape[0])
-        box, points = self.face_selection(
-            image_bgr.shape[:2], detections, key_points, is_enroll=self.enroll
-        )
+        with tracing.span("pipeline.select"):
+            box, points = self.face_selection(
+                image_bgr.shape[:2], detections, key_points, is_enroll=self.enroll
+            )
         if box is None and not self.process_on_no_face:
+            top.set("faces", 0)
             return result
-        face = self.face_alignment(img, box, points)
-        start = time.perf_counter()
-        probs, emb = self.heads(face[None])
-        probs, emb = probs[0].cpu().numpy(), emb[0].cpu().numpy()
-        self._record_heads(1, time.perf_counter() - start)
-        self._fill(result, probs, emb)
-        result.selected_face_box = box
+        top.set("faces", 1)
+        start = time.perf_counter_ns()
+        with tracing.span("heads", start, self.device) as sp:
+            face = self.face_alignment(img, box, points)
+            probs, emb = self.heads(face[None])
+            sp.device_end()
+            probs, emb = probs[0].cpu().numpy(), emb[0].cpu().numpy()
+            tracing.host_sync(self.device, 2)
+            end = sp.end(time.perf_counter_ns())
+        self._record_heads(1, (end - start) * 1e-9)
+        with tracing.span("pipeline.assemble"):
+            self._fill(result, probs, emb)
+            result.selected_face_box = box
         return result
 
     # ---- batch ---------------------------------------------------------------
@@ -158,64 +180,84 @@ class FacePipeline:
         n = len(payloads)
         if n == 0:
             return []
+        with tracing.span("pipeline.extract_batch") as top:
+            top.set("images", n)
+            return self._extract_batch(payloads, top)
+
+    def _extract_batch(self, payloads, top) -> List[FaceExtractionResult]:
+        n = len(payloads)
         width, height = self.config.detection.image_size
-        images = [
-            decode_image_bytes(p) if isinstance(p, (bytes, bytearray)) else p for p in payloads
-        ]
+        with tracing.span("pipeline.decode"):
+            images = [
+                decode_image_bytes(p) if isinstance(p, (bytes, bytearray)) else p for p in payloads
+            ]
         # OpenCV's uint8 INTER_LINEAR letterbox, bit for bit: the JAX batch
         # path letterboxes on the host with cv2.
-        canvases, det_scales = letterbox_u8_batch(images, width, height, self.device)
-        scales = np.asarray(det_scales, np.float32)
+        with tracing.span("pipeline.letterbox"):
+            canvases, det_scales = letterbox_u8_batch(images, width, height, self.device)
+            scales = np.asarray(det_scales, np.float32)
 
-        start = time.perf_counter()
-        out = self.face_detection.detect_batch(canvases, torch.from_numpy(scales))
-        counts, all_det, all_kps = (t.cpu().numpy() for t in (out.count, out.det, out.kps))
-        self._record(self.config.detection.model_name, n, time.perf_counter() - start)
+        start = time.perf_counter_ns()
+        with tracing.span("detect", start, self.device) as sp:
+            out = self.face_detection.detect_batch(canvases, torch.from_numpy(scales))
+            sp.device_end()
+            counts, all_det, all_kps = (t.cpu().numpy() for t in (out.count, out.det, out.kps))
+            tracing.host_sync(self.device, 3)
+            end = sp.end(time.perf_counter_ns())
+        self._record(self.config.detection.model_name, n, (end - start) * 1e-9)
 
-        results = [FaceExtractionResult(face_count=int(c)) for c in counts]
-        selected, matrices, staged = [], [], []
-        for i in range(n):
-            box, points = self.face_selection(
-                images[i].shape[:2],
-                all_det[i, : counts[i]],
-                all_kps[i, : counts[i]],
-                is_enroll=self.enroll,
-            )
-            if box is None:
-                if self.process_on_no_face:
-                    staged.append((i, None, None))
-                continue
-            results[i].selected_face_box = box
-            m = self.face_alignment.estimate(points) if points is not None else None
-            if m is None:  # degenerate landmarks: margin-crop fallback
-                staged.append((i, box, points))
-                continue
-            m = m.copy()
-            m[:, :2] /= scales[i]  # the canvas is the original times det_scale
-            selected.append(i)
-            matrices.append(m)
-
-        faces, owners = [], []
-        if selected:
-            out_w, out_h = self.config.alignment.image_size
-            idx = torch.tensor(selected, device=self.device)
-            mats = torch.from_numpy(np.stack(matrices)).to(self.device)
-            faces.append(warp_affine(canvases[idx].float(), mats, out_h, out_w))
-            owners += selected
-        for i, box, points in staged:
-            faces.append(self.face_alignment(to_device(images[i], self.device), box, points)[None])
-            owners.append(i)
-        if owners:
-            start = time.perf_counter()
+        with tracing.span("pipeline.select"):
+            results = [FaceExtractionResult(face_count=int(c)) for c in counts]
+            selected, matrices, staged = [], [], []
+            for i in range(n):
+                box, points = self.face_selection(
+                    images[i].shape[:2],
+                    all_det[i, : counts[i]],
+                    all_kps[i, : counts[i]],
+                    is_enroll=self.enroll,
+                )
+                if box is None:
+                    if self.process_on_no_face:
+                        staged.append((i, None, None))
+                    continue
+                results[i].selected_face_box = box
+                m = self.face_alignment.estimate(points) if points is not None else None
+                if m is None:  # degenerate landmarks: margin-crop fallback
+                    staged.append((i, box, points))
+                    continue
+                m = m.copy()
+                m[:, :2] /= scales[i]  # the canvas is the original times det_scale
+                selected.append(i)
+                matrices.append(m)
+            if selected:
+                idx = torch.tensor(selected, device=self.device)
+                mats = torch.from_numpy(np.stack(matrices)).to(self.device)
+                tracing.host_sync(self.device, 2)
+            crops = [self.face_alignment(to_device(images[i], self.device), box, points)[None]
+                     for i, box, points in staged]
+        owners = selected + [i for i, _, _ in staged]
+        top.set("faces", len(owners))
+        if not owners:
+            return results
+        start = time.perf_counter_ns()
+        with tracing.span("heads", start, self.device) as sp:
+            faces = crops
+            if selected:
+                out_w, out_h = self.config.alignment.image_size
+                faces = [warp_affine(canvases[idx].float(), mats, out_h, out_w)] + crops
             probs, embs = self.heads(torch.cat(faces))
+            sp.device_end()
             probs, embs = probs.cpu().numpy(), embs.cpu().numpy()
-            # One fused call; the statistics count the two calls the JAX
-            # pipeline makes (the warped faces, then the crop-fallback
-            # faces), the clock split between them by their face counts.
-            per_face = (time.perf_counter() - start) / len(owners)
-            for k in (len(selected), len(staged)):
-                if k:
-                    self._record_heads(k, k * per_face)
+            tracing.host_sync(self.device, 2)
+            end = sp.end(time.perf_counter_ns())
+        # One fused call; the statistics count the two calls the JAX
+        # pipeline makes (the warped faces, then the crop-fallback faces),
+        # the clock split between them by their face counts.
+        per_face = (end - start) * 1e-9 / len(owners)
+        for k in (len(selected), len(staged)):
+            if k:
+                self._record_heads(k, k * per_face)
+        with tracing.span("pipeline.assemble"):
             for j, i in enumerate(owners):
                 self._fill(results[i], probs[j], embs[j])
         return results

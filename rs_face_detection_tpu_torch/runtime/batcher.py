@@ -10,16 +10,26 @@ dispatches.  Short batches ride the server's zero padding
 Failure isolation: if a batch fails host-side (e.g. one undecodable
 payload), the worker retries each item individually so only the bad
 request's future carries the exception.
+
+Tracing (utils/tracing.py, on while torch.profiler runs): each request's
+wait from ``submit`` to the start of its batch is a ``runtime.queue`` span
+with its request id (given to ``submit``) and its batch's id, and each
+``batch_fn`` call a ``runtime.batch`` span with the batch id and the
+request ids.  The cumulative queue and compute seconds of ``stats()`` come
+from the same ``perf_counter`` reads.
 """
 
 from __future__ import annotations
 
 import collections
+import itertools
 import queue
 import threading
 import time
 from concurrent.futures import Future
 from typing import Any, Dict, List, Optional, Tuple
+
+from ..utils import tracing
 
 _SENTINEL = object()
 
@@ -65,12 +75,11 @@ class DynamicBatcher:
         self._stats_lock = threading.Lock()
         self._batch_sizes: "collections.Counter" = collections.Counter()
         # Duration accounting (Triton model_statistics parity: its
-        # inference_stats splits queue vs compute).  Cumulative plus a
-        # bounded sample window for percentiles.
-        self._cum_queue_s = 0.0
-        self._cum_compute_s = 0.0
-        self._queue_samples: "collections.deque" = collections.deque(maxlen=2048)
-        self._compute_samples: "collections.deque" = collections.deque(maxlen=2048)
+        # inference_stats splits queue vs compute), cumulative; the
+        # distribution is in the runtime.queue spans of a traced session.
+        self._cum_queue_ns = 0
+        self._cum_compute_ns = 0
+        self._batch_ids = itertools.count(1)
         self._worker = threading.Thread(
             target=self._loop, name="rsfd-dynamic-batcher", daemon=True
         )
@@ -78,13 +87,15 @@ class DynamicBatcher:
 
     # -- client surface ------------------------------------------------------
 
-    def submit(self, payload: Any) -> "Future":
-        """Enqueue one image (bytes or BGR array); resolves to (boxes, kps)."""
+    def submit(self, payload: Any, request_id: Optional[int] = None) -> "Future":
+        """Enqueue one image (bytes or BGR array); resolves to (boxes, kps).
+        ``request_id``: the caller's id of the request, which its
+        ``runtime.queue`` and ``runtime.batch`` spans carry."""
         with self._submit_lock:
             if self._closed.is_set():
                 raise RuntimeError("DynamicBatcher is closed")
             fut: "Future" = Future()
-            self._queue.put((payload, fut, time.monotonic()))
+            self._queue.put((payload, fut, time.perf_counter_ns(), request_id))
         return fut
 
     def detect(
@@ -99,32 +110,20 @@ class DynamicBatcher:
         Returns {"batches": total batches run, "requests": total requests,
         "batch_size_counts": {size: count}} — the analog of Triton's
         inference_statistics batching counters — plus the duration split
-        Triton's inference_stats carries (queue vs compute): cumulative
-        seconds and p50/p95/p99 milliseconds over a bounded sample window.
-        Queue time is per REQUEST (submit -> its batch starts); compute
-        time is per BATCH (one batch_fn call).
+        Triton's inference_stats carries (queue vs compute), in cumulative
+        seconds.  Queue time is per REQUEST (submit -> its batch starts);
+        compute time is per BATCH (one batch_fn call).  Their distributions
+        are the runtime.queue and runtime.batch spans of a traced session.
         """
-        def pct(samples, q):
-            if not samples:
-                return 0.0
-            s = sorted(samples)
-            return round(s[min(len(s) - 1, int(q * len(s)))] * 1e3, 3)
-
         with self._stats_lock:
             sizes = dict(self._batch_sizes)
-            queue_s, compute_s = self._cum_queue_s, self._cum_compute_s
-            qs = list(self._queue_samples)
-            cs = list(self._compute_samples)
+            queue_ns, compute_ns = self._cum_queue_ns, self._cum_compute_ns
         return {
             "batches": sum(sizes.values()),
             "requests": sum(k * v for k, v in sizes.items()),
             "batch_size_counts": {str(k): v for k, v in sorted(sizes.items())},
-            "cumulative_queue_s": round(queue_s, 6),
-            "cumulative_compute_s": round(compute_s, 6),
-            "queue_ms": {"p50": pct(qs, 0.50), "p95": pct(qs, 0.95),
-                         "p99": pct(qs, 0.99)},
-            "compute_ms": {"p50": pct(cs, 0.50), "p95": pct(cs, 0.95),
-                           "p99": pct(cs, 0.99)},
+            "cumulative_queue_s": round(queue_ns * 1e-9, 6),
+            "cumulative_compute_s": round(compute_ns * 1e-9, 6),
         }
 
     def close(self, timeout: float = 10.0) -> None:
@@ -144,13 +143,13 @@ class DynamicBatcher:
 
     # -- worker ----------------------------------------------------------------
 
-    def _drain(self, first) -> Tuple[List[Tuple[Any, "Future"]], bool]:
+    def _drain(self, first) -> Tuple[List[Tuple[Any, "Future", int, Optional[int]]], bool]:
         """Collect up to batch_size items: `first` already arrived; wait at
         most max_delay for the rest.  Returns (items, saw_sentinel)."""
         items = [first]
-        deadline = time.monotonic() + self._max_delay
+        deadline = time.perf_counter() + self._max_delay
         while len(items) < self._batch_size:
-            remaining = deadline - time.monotonic()
+            remaining = deadline - time.perf_counter()
             try:
                 nxt = (
                     self._queue.get_nowait()
@@ -176,39 +175,41 @@ class DynamicBatcher:
         except Exception:
             pass  # cancelled / already resolved: nothing to deliver
 
-    def _run_batch(self, items: List[Tuple[Any, "Future", float]]) -> None:
+    def _run_batch(self, items: List[Tuple[Any, "Future", int, Optional[int]]]) -> None:
         # Claim each Future (blocks late cancel()); drop already-cancelled
         # requests before paying for their device work.
-        items = [
-            (p, fut, t)
-            for p, fut, t in items
-            if fut.set_running_or_notify_cancel()
-        ]
+        items = [item for item in items if item[1].set_running_or_notify_cancel()]
         if not items:
             return
-        t_start = time.monotonic()
-        queue_waits = [t_start - t for _, _, t in items]
-        payloads = [p for p, _, _ in items]
-        try:
-            results = self._batch_fn(payloads)
-        except Exception:
-            # One bad payload must not sink its batch neighbors: retry each
-            # request alone so the exception lands only on the culprit(s).
-            for p, fut, _ in items:
-                try:
-                    self._resolve(fut, self._batch_fn([p])[0])
-                except Exception as e:
-                    self._resolve(fut, exc=e)
-        else:
-            for (_, fut, _), res in zip(items, results):
-                self._resolve(fut, res)
-        compute_s = time.monotonic() - t_start
+        batch_id = next(self._batch_ids)
+        t_start = time.perf_counter_ns()
+        queue_ns = sum(t_start - t for _, _, t, _ in items)
+        if tracing.enabled():
+            for _, _, t, rid in items:
+                tracing.record("runtime.queue", t, t_start, request=rid, batch=batch_id)
+        payloads = [p for p, _, _, _ in items]
+        with tracing.span("runtime.batch", t_start) as sp:
+            if sp:
+                sp.set("batch", batch_id)
+                sp.set("requests", [rid for _, _, _, rid in items])
+            try:
+                results = self._batch_fn(payloads)
+            except Exception:
+                # One bad payload must not sink its batch neighbors: retry each
+                # request alone so the exception lands only on the culprit(s).
+                for p, fut, _, _ in items:
+                    try:
+                        self._resolve(fut, self._batch_fn([p])[0])
+                    except Exception as e:
+                        self._resolve(fut, exc=e)
+            else:
+                for (_, fut, _, _), res in zip(items, results):
+                    self._resolve(fut, res)
+            t_end = sp.end(time.perf_counter_ns())
         with self._stats_lock:
             self._batch_sizes[len(items)] += 1
-            self._cum_queue_s += sum(queue_waits)
-            self._cum_compute_s += compute_s
-            self._queue_samples.extend(queue_waits)
-            self._compute_samples.append(compute_s)
+            self._cum_queue_ns += queue_ns
+            self._cum_compute_ns += t_end - t_start
 
     def _loop(self) -> None:
         while True:

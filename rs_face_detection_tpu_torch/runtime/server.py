@@ -35,6 +35,7 @@ stream.
 from __future__ import annotations
 
 import base64
+import itertools
 import json
 import os
 import threading
@@ -51,6 +52,8 @@ try:  # pragma: no cover - environment probe
 except Exception:  # pragma: no cover
     grpc = None
     _HAS_GRPC = False
+
+from ..utils import tracing
 
 SERVICE = "rsfd.FacePipeline"
 
@@ -147,7 +150,9 @@ class _TraceSession:
     Kineto's start and stop must run on one thread (a stop from another
     thread crashes the process), while the TraceSetting calls that toggle
     the session arrive on any handler thread.  Ops of every thread are
-    recorded (``profile_all_threads``), and CUDA kernels when ``cuda``."""
+    recorded (``profile_all_threads``), and CUDA kernels when ``cuda``.
+    While it runs, the pipeline's spans (utils/tracing.py) are on: the
+    trace holds each stage of an Extract as a ``user_annotation`` event."""
 
     def __init__(self, trace_dir: str, cuda: bool) -> None:
         self.dir = trace_dir
@@ -174,6 +179,7 @@ class _TraceSession:
             self.error = e
             self._started.set()
             return
+        tracing.begin_session()
         self._started.set()
         self._stop.wait()
         try:
@@ -221,6 +227,7 @@ class FacePipelineServicer:
         self._ekyc_lock = threading.Lock()
         self._shm = None  # SharedMemoryRegistry, built on first shm verb
         self._shm_lock = threading.Lock()
+        self._request_ids = itertools.count(1)  # Extract's, for its spans
 
     def close(self) -> None:
         """Stop the dynamic batchers' workers, the stream server's decode
@@ -306,16 +313,25 @@ class FacePipelineServicer:
         return self._extract_batcher_obj
 
     def extract(self, payload: bytes) -> bytes:
-        try:
-            if self._dynamic_batching:
-                # Batcher failures (incl. per-item retry results) keep the
-                # JSON error contract, mirroring detect()'s batching branch.
+        if self._dynamic_batching:
+            # One runtime.extract span per request (utils/tracing.py), with
+            # the request id its runtime.queue and runtime.batch spans carry;
+            # its runtime.wait child is the wait on the batcher.
+            request_id = next(self._request_ids)
+            with tracing.span("runtime.extract") as sp:
+                sp.set("request", request_id)
                 try:
-                    result = self._extract_batcher().submit(payload).result()
+                    future = self._extract_batcher().submit(payload, request_id)
+                    with tracing.span("runtime.wait"):
+                        result = future.result()
                 except Exception as e:
+                    # Batcher failures (incl. per-item retry results) and
+                    # build failures keep the JSON error contract, mirroring
+                    # detect()'s batching branch.
                     return _json_bytes({"error": str(e)})
-            else:
-                result = self.pipeline.extract(payload)
+                return _json_bytes(extract_reply(result))
+        try:
+            result = self.pipeline.extract(payload)
         except Exception as e:  # bad payloads, decode errors, build failures:
             # the JSON error contract, never gRPC UNKNOWN.
             return _json_bytes({"error": str(e)})

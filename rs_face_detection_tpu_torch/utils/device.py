@@ -7,6 +7,8 @@ from typing import Union
 import numpy as np
 import torch
 
+from . import tracing
+
 DeviceLike = Union[str, torch.device]
 
 
@@ -27,7 +29,11 @@ def resolve_device(device: DeviceLike) -> torch.device:
 
 
 def to_device(x, device: torch.device) -> torch.Tensor:
-    """A numpy array or tensor as a tensor on `device` (no copy if there)."""
+    """A numpy array or tensor as a tensor on `device` (no copy if there).
+    A host array bound for the card is a pageable copy: it blocks the host
+    on the stream, and ``tracing.host_sync`` counts it."""
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
+    if x.device.type == "cpu":
+        tracing.host_sync(device)
     return x.to(device)

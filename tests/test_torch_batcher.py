@@ -6,8 +6,8 @@ landmarks within 1e-3 px of ``detect_batch`` on each image alone, which
 tests/test_torch_serving.py holds against the JAX server), a bad payload
 fails alone, close drains and then refuses, a cancelled future does not
 kill the worker, the facade's Detect runs through the batcher, and an SCRFD
-server coalesces too.  The statistics carry the JAX batcher's keys.  The
-kernels' launch counters are bumped under a lock: counts from concurrent
+server coalesces too.  The statistics carry the JAX batcher's keys but
+its sampled percentiles.  The kernels' launch counters are bumped under a lock: counts from concurrent
 threads are exact, and a library's ctypes signatures are set once before
 any thread can call it.
 """
@@ -109,11 +109,12 @@ def test_concurrent_submits_coalesce_and_match(server, images):
     assert_same(results, expected)
     assert stats["requests"] == len(imgs)
     assert stats["batches"] < len(imgs) and any(int(k) > 1 for k in stats["batch_size_counts"])
-    assert stats["cumulative_compute_s"] > 0 and stats["compute_ms"]["p50"] > 0
-    assert stats["queue_ms"]["p99"] >= stats["queue_ms"]["p50"] >= 0
+    assert stats["cumulative_compute_s"] > 0 and stats["cumulative_queue_s"] >= 0
+    # the port keeps no sampled percentiles: a traced session's
+    # runtime.queue and runtime.batch spans carry the distributions
     with JDynamicBatcher(batch_fn=lambda items: items, batch_size=2) as jb:
         jb.submit(1).result(timeout=10)
-        assert set(jb.stats()) == set(stats)
+        assert set(jb.stats()) - {"queue_ms", "compute_ms"} == set(stats)
 
 
 def test_bad_payload_isolated(server, images):
