@@ -33,7 +33,7 @@ from ..models.registry import ModelRegistry, registry_on
 from ..ops.image import bgr_to_rgb, letterbox_u8_batch, normalize, resize_bilinear, warp_affine
 from ..utils import tracing
 from ..utils.device import DeviceLike, resolve_device, to_device
-from ..utils.image_io import decode_image_bytes
+from ..utils.image_io import decode_image_bytes, decode_images, decode_workers
 from .alignment import FaceAlignment
 from .detection import RetinaFaceDetection
 from .extraction import EMBED_MEAN, EMBED_SCALE, l2_normalize
@@ -172,10 +172,11 @@ class FacePipeline:
     def extract_batch(self, payloads) -> List[FaceExtractionResult]:
         """extract() over a batch of images (bytes or BGR arrays).
 
-        Two device passes: one batched detect over uint8 letterboxed
-        canvases, one fused warp + quality + embed over every selected face.
-        Faces are warped from the letterboxed canvas (the matrix rescaled by
-        det_scale).
+        The byte payloads decode in parallel on host threads
+        (``utils/image_io.py::decode_images``).  Two device passes: one
+        batched detect over uint8 letterboxed canvases, one fused warp +
+        quality + embed over every selected face.  Faces are warped from the
+        letterboxed canvas (the matrix rescaled by det_scale).
         """
         n = len(payloads)
         if n == 0:
@@ -187,10 +188,10 @@ class FacePipeline:
     def _extract_batch(self, payloads, top) -> List[FaceExtractionResult]:
         n = len(payloads)
         width, height = self.config.detection.image_size
-        with tracing.span("pipeline.decode"):
-            images = [
-                decode_image_bytes(p) if isinstance(p, (bytes, bytearray)) else p for p in payloads
-            ]
+        with tracing.span("pipeline.decode") as sp:
+            if sp:
+                sp.set("workers", decode_workers(payloads))
+            images = decode_images(payloads)
         # OpenCV's uint8 INTER_LINEAR letterbox, bit for bit: the JAX batch
         # path letterboxes on the host with cv2.
         with tracing.span("pipeline.letterbox"):

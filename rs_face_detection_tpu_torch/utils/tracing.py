@@ -6,7 +6,7 @@ The switch is ``torch.autograd.profiler._is_profiler_enabled``, which the
 profiler sets and clears for the whole process.  There is no other switch.
 
 Off, a site costs a call, one attribute read and a branch: ``span`` returns
-the shared ``OFF`` object, ``host_sync`` and ``record`` return at once.
+the shared ``OFF`` object, ``count``, ``host_sync`` and ``record`` return at once.
 Nothing is recorded, no CUDA event is made and nothing is allocated.
 
 On, a span:
@@ -22,11 +22,13 @@ On, a span:
   ``device_end()``; their milliseconds are read when the store is read,
   after the host copies that follow ``device_end()`` have completed them.
 
-``host_sync`` counts one call that blocks the host on the stream (a
-device-to-host copy, a pageable host-to-device copy, an ``item``) on the
-innermost open span of the thread; a span hands its counts to its parent
-when it ends, so ``pipeline.extract_batch`` holds its batch's.  It counts
-only for a CUDA device: on the CPU nothing waits on a stream.
+``count`` adds to a counter of the innermost open span of the thread; a
+span hands its counts to its parent when it ends, so
+``pipeline.extract_batch`` holds its batch's.  ``host_sync`` counts one
+call that blocks the host on the stream (a device-to-host copy, a pageable
+host-to-device copy, an ``item``) as ``host_syncs``, only for a CUDA
+device: on the CPU nothing waits on a stream.  ``decode_pooled`` counts the
+images ``utils/image_io.py::decode_images`` decoded on its pool of threads.
 
 The store holds the newest session: it opens at the first span or record
 after the profiler starts, and ``read()`` closes it once the profiler has
@@ -175,15 +177,22 @@ def span(name: str, start_ns: Optional[int] = None, device=None):
     return Span(name, start_ns, device)
 
 
-def host_sync(device, n: int = 1) -> None:
-    """Counts ``n`` calls that block the host on ``device``'s stream."""
-    if not _profiler._is_profiler_enabled or torch.device(device).type != "cuda":
+def count(name: str, n: int) -> None:
+    """Adds ``n`` to the counter ``name`` of the thread's innermost open
+    span and of the session."""
+    if not _profiler._is_profiler_enabled:
         return
     stack = _stack()
     if stack:
         counts = stack[-1].counts
-        counts["host_syncs"] = counts.get("host_syncs", 0) + n
-    _STORE.count("host_syncs", n)
+        counts[name] = counts.get(name, 0) + n
+    _STORE.count(name, n)
+
+
+def host_sync(device, n: int = 1) -> None:
+    """Counts ``n`` calls that block the host on ``device``'s stream."""
+    if _profiler._is_profiler_enabled and torch.device(device).type == "cuda":
+        count("host_syncs", n)
 
 
 def record(name: str, start_ns: int, end_ns: int, **attrs) -> None:

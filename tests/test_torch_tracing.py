@@ -38,6 +38,7 @@ from rs_face_detection_tpu_torch.utils import tracing
 torch.set_num_threads(2)
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DET = "face_detection_retina"
 DET_KW = dict(image_size=(64, 64), confidence_threshold=0.3, max_candidates=64, max_detections=16)
 STAGES = ["pipeline.decode", "pipeline.letterbox", "detect", "pipeline.select", "heads", "pipeline.assemble"]
@@ -61,14 +62,19 @@ def pipe():
     return make_pipeline("cpu")[0]
 
 
-@pytest.fixture(scope="module")
-def payloads():
+def encoded_frames():
+    """The trained scene and five frames of the AP set, as JPEGs."""
     cv2 = pytest.importorskip("cv2")
     with np.load(os.path.join(FIXTURES, "golden_trained_scene.npz")) as g:
         scene = g["image"]
     with np.load(os.path.join(FIXTURES, "ap_eval_set.npz")) as d:
         ap = list(d["images"][:5])
     return [cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, 95])[1].tobytes() for img in (scene, *ap)]
+
+
+@pytest.fixture(scope="module")
+def payloads():
+    return encoded_frames()
 
 
 @contextlib.contextmanager
@@ -124,7 +130,9 @@ def test_stage_spans_nest_under_extract_batch(pipe, payloads):
         assert s.device_ms is None  # no CUDA events on the CPU
     covered = sum(s.end_ns - s.start_ns for s in children)
     assert covered >= 0.9 * (top.end_ns - top.start_ns)
-    assert top.counts == {} and snap.counters == {}  # the CPU waits on no stream
+    # the pool decoded every payload; no host_syncs: the CPU waits on no stream
+    pooled = {"decode_pooled": len(payloads)}
+    assert top.counts == pooled and snap.counters == pooled
 
 
 def test_single_image_path_has_the_same_stages(pipe, payloads):
@@ -134,6 +142,30 @@ def test_single_image_path_has_the_same_stages(pipe, payloads):
     (top,) = snap.named("pipeline.extract")
     assert top.attrs == {"images": 1, "faces": int(result.facial_feature is not None)}
     assert [s.name for s in sorted(snap.children(top), key=lambda s: s.start_ns)] == STAGES
+
+
+def test_the_batch_decode_runs_on_the_pool(monkeypatch, pipe, payloads):
+    """The ``pipeline.decode`` span holds its pool threads, the batch span the
+    images decoded there, and the benchmark's readers read that count; on a
+    program that decodes on one thread they read nothing."""
+    from benchmark import spans
+    from benchmark.manifest import Manifest
+
+    with profiled():
+        pipe.extract_batch(payloads[:4])
+    snap = tracing.read()
+    (decode,) = snap.named("pipeline.decode")
+    (top,) = snap.named("pipeline.extract_batch")
+    assert 1 <= decode.attrs["workers"] <= 4
+    assert top.counts["decode_pooled"] == 4
+    assert spans.count_per_batch(snap, "decode_pooled") == 4.0
+    man = Manifest(REPO)
+    readers = [man.reader(m) for m in man.data["per_layer"]
+               if m["name"].startswith("pipeline.decode_pooled_per_batch.")]
+    assert len(readers) == 2 and [r.read({}) for r in readers] == [4.0, 4.0]
+    top.counts = {}  # a batch of the serial decode
+    monkeypatch.setattr(tracing, "read", lambda: tracing.Snapshot([top, decode], {}, snap.anchor))
+    assert [r.read({}) for r in readers] == [None, None]
 
 
 def test_stage_spans_are_on_the_chrome_trace_clock(pipe, payloads, tmp_path):
