@@ -18,6 +18,7 @@ from rs_face_detection_tpu.models.vit import _flash_attention_fn
 from rs_face_detection_tpu_torch.kernels import attention as katt
 from rs_face_detection_tpu_torch.kernels.attention import flash_attention_cuda
 from rs_face_detection_tpu_torch.ops.attention import attention, attention_plain
+from deadlines import in_child
 
 SHAPES = [(2, 17, 2, 32), (1, 257, 1, 64)]
 
@@ -37,6 +38,12 @@ def _qkv(shape, seed, packed):
     return (q, k, v), (tq, tk, tv)
 
 
+def flash_interpret(q, k, v):
+    """The Pallas kernel in interpret mode, which can deadlock: run by in_child."""
+    with pltpu.force_tpu_interpret_mode():
+        return np.asarray(_flash_attention_fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+
+
 @pytest.mark.parametrize("packed", [False, True], ids=["contiguous", "strided"])
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_plain_matches_flax(shape, packed):
@@ -50,8 +57,7 @@ def test_plain_matches_flax(shape, packed):
 @pytest.mark.parametrize("shape", SHAPES, ids=str)
 def test_plain_matches_pallas_flash_interpret(shape):
     (q, k, v), (tq, tk, tv) = _qkv(shape, 1, True)
-    with pltpu.force_tpu_interpret_mode():
-        want = np.asarray(_flash_attention_fn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    want = in_child(flash_interpret, q, k, v)
     np.testing.assert_allclose(attention_plain(tq, tk, tv).numpy(), want, atol=2e-6, rtol=0)
 
 

@@ -18,8 +18,6 @@ import importlib
 import json
 import os
 import sys
-import threading
-import time
 
 import numpy as np
 import pytest
@@ -32,6 +30,7 @@ from rs_face_detection_tpu_torch.pipeline.detection import RetinaFaceDetection
 from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import SCRFDDetection
 from rs_face_detection_tpu_torch.runtime.batcher import DynamicBatcher
 from rs_face_detection_tpu_torch.serving.detection_server import DetectionServer
+from deadlines import in_threads
 
 torch.set_num_threads(2)
 
@@ -69,34 +68,9 @@ def assert_same(got, want):
         np.testing.assert_allclose(k, ek, rtol=0, atol=TOL)
 
 
-def join_all(workers, what, timeout_s=120.0):
-    """Join threads within one deadline; fail naming what did not finish."""
-    deadline = time.monotonic() + timeout_s
-    for t in workers:
-        t.join(timeout=max(deadline - time.monotonic(), 0.0))
-    stuck = sum(t.is_alive() for t in workers)
-    assert not stuck, f"{stuck} of {len(workers)} {what} threads did not finish within {timeout_s} s"
-
-
 def burst(batcher, payloads, threads=8):
-    futs = [None] * len(payloads)
-    start = threading.Barrier(threads)
-    errors = []
-
-    def client(worker):
-        try:
-            start.wait(timeout=60)
-            for i in range(worker, len(payloads), threads):
-                futs[i] = batcher.submit(payloads[i])
-        except Exception as e:  # noqa: BLE001 - reported by the assert below
-            errors.append(e)
-
-    workers = [threading.Thread(target=client, args=(w,)) for w in range(threads)]
-    for t in workers:
-        t.start()
-    join_all(workers, "submitting client")
-    assert not errors, f"a submitting client failed: {errors[0]!r}"
-    return [f.result(timeout=120) for f in futs]
+    futs = in_threads(lambda w: [batcher.submit(p) for p in payloads[w::threads]], threads, "submitting client")
+    return [futs[i % threads][i // threads].result(timeout=120) for i in range(len(payloads))]
 
 
 def test_concurrent_submits_coalesce_and_match(server, images):
@@ -189,13 +163,10 @@ def test_batcher_over_scrfd_server():
 def test_launch_counts_are_exact_under_threads(kernel):
     mod = importlib.import_module(f"rs_face_detection_tpu_torch.kernels.{kernel}")
     before, per, n = mod.launches, 20000, 8
-    workers = [threading.Thread(target=lambda: [mod.count_launch() for _ in range(per)]) for _ in range(n)]
     switch = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)  # switch threads as often as possible
     try:
-        for t in workers:
-            t.start()
-        join_all(workers, "counting")
+        in_threads(lambda _: [mod.count_launch() for _ in range(per)], n, "counting")
     finally:
         sys.setswitchinterval(switch)
     assert mod.launches == before + per * n
@@ -210,22 +181,13 @@ def test_library_setup_runs_once_before_any_caller(monkeypatch):
     monkeypatch.setattr(build, "build", lambda name: libm)
     monkeypatch.setattr(build, "_libs", {})
     monkeypatch.setattr(build, "_set_up", set())
-    calls, seen = [], []
-    barrier = threading.Barrier(8)
+    calls = []
 
     def setup(lib):
         calls.append(lib)
         lib.cos.restype = ctypes.c_double
         lib.cos.argtypes = [ctypes.c_double]
 
-    def first_call():
-        barrier.wait(timeout=60)
-        lib = build.load("standin", setup)
-        seen.append(lib.cos(0.0))
-
-    workers = [threading.Thread(target=first_call) for _ in range(8)]
-    for t in workers:
-        t.start()
-    join_all(workers, "first-call")
+    seen = in_threads(lambda _: build.load("standin", setup).cos(0.0), 8, "first-call")
     assert len(calls) == 1 and seen == [1.0] * 8
     assert build.load("standin") is calls[0]  # a load without setup keeps the library

@@ -22,11 +22,10 @@ import pytest
 from rs_face_detection_tpu_torch.runtime.batcher import DynamicBatcher
 from rs_face_detection_tpu_torch.utils import image_io, tracing
 from rs_face_detection_tpu_torch.utils.image_io import decode_image_bytes, decode_images, decode_workers
+from deadlines import RPC_S, in_threads
 from test_torch_tracing import encoded_frames, make_pipeline, profiled, same_results
 
 cv2 = pytest.importorskip("cv2")
-
-TIMEOUT_S = 120.0
 
 
 def _scene(h, w, seed):
@@ -110,12 +109,12 @@ def test_only_the_bad_request_fails_behind_the_batcher(pipe, payloads):
     batch = [payloads[0], payloads[1], b"not an image", payloads[2], payloads[3]]
     with DynamicBatcher(batch_fn=pipe.extract_batch, batch_size=8, max_delay_ms=500.0) as batcher:
         futures = [batcher.submit(p) for p in batch]
-        done = [f.exception(TIMEOUT_S) for f in futures]
+        done = [f.exception(RPC_S) for f in futures]
         stats = batcher.stats()
     assert isinstance(done[2], ValueError)
     assert [e is None for e in done] == [True, True, False, True, True]
     # one batch of five, then each request alone
-    good = [f.result() for i, f in enumerate(futures) if i != 2]
+    good = [f.result(RPC_S) for i, f in enumerate(futures) if i != 2]
     same_results(good, [pipe.extract_batch([p])[0] for i, p in enumerate(batch) if i != 2])
     assert stats["batch_size_counts"] == {"5": 1} and stats["requests"] == 5
 
@@ -161,14 +160,9 @@ def test_callers_share_the_pool():
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        workers = [threading.Thread(target=work, args=(k,)) for k in range(callers)]
-        for t in workers:
-            t.start()
-        for t in workers:
-            t.join(timeout=TIMEOUT_S)
+        in_threads(work, callers, "decoding")
     finally:
         sys.setswitchinterval(old)
-    assert not any(t.is_alive() for t in workers)
     assert wrong == []
 
 
@@ -182,7 +176,7 @@ def test_a_forked_child_builds_its_own_pool(mixed):
     want = [decode_image_bytes(p) if not isinstance(p, np.ndarray) else p for p in mixed]
     child = multiprocessing.get_context("fork").Process(target=_decode_in_child, args=(mixed, want))
     child.start()
-    child.join(TIMEOUT_S)
+    child.join(RPC_S)
     if child.is_alive():
         child.kill()
     assert child.exitcode == 0

@@ -21,7 +21,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import jax
 import numpy as np
@@ -33,6 +32,7 @@ from rs_face_detection_tpu.parallel.mesh import fsdp_param_spec as jax_fsdp_para
 from rs_face_detection_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from rs_face_detection_tpu.parallel.mesh import replicated as jax_replicated
 from rs_face_detection_tpu_torch.models import weights
+from deadlines import communicate_all
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -71,21 +71,7 @@ def run_ranks(work, world, body, inputs=None, timeout=150.0, extra_args=()):
                          stdin=subprocess.DEVNULL, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)
     ]
-    deadline = time.monotonic() + timeout
-    outputs = []
-    try:
-        for r, p in enumerate(procs):
-            try:
-                out, err = p.communicate(timeout=max(1.0, deadline - time.monotonic()))
-            except subprocess.TimeoutExpired:
-                raise AssertionError(f"rank {r} of {world} passed its {timeout} s deadline") from None
-            outputs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait(timeout=10)
-    for r, (rc, out, err) in enumerate(outputs):
+    for r, (rc, out, err) in enumerate(communicate_all(procs, timeout)):
         assert rc == 0, f"rank {r} exited {rc}:\n{out[-2000:]}\n{err[-4000:]}"
     results = []
     for r in range(world):

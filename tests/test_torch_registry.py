@@ -39,6 +39,7 @@ from rs_face_detection_tpu_torch.models.heads import SmallCNN, small_cnn_map
 from rs_face_detection_tpu_torch.models.vit import cast_for_serving
 from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import EKYCPipeline
 from rs_face_detection_tpu_torch.pipeline.face_pipeline import FacePipeline
+from deadlines import in_threads
 
 torch.set_num_threads(2)
 
@@ -126,12 +127,7 @@ def test_concurrent_second_load_keeps_the_first_entry():
 
     reg = preg.ModelRegistry("cpu")
     reg.register_builder("head", builder)
-    threads = [threading.Thread(target=reg.load, args=("head",)) for _ in range(2)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=30)
-    assert not any(t.is_alive() for t in threads), "a load did not finish within 30 s"
+    in_threads(lambda _: reg.load("head"), 2, "load", 30)
     assert len(built) == 2
     kept = reg.get("head")
     assert kept in built

@@ -10,15 +10,14 @@ without one it exits non-zero and says so, and serves nothing.
 """
 
 import os
-import queue
 import re
 import subprocess
 import sys
-import threading
-import time
 
 import pytest
 import torch
+
+from deadlines import read_until
 
 pytest.importorskip("grpc")
 
@@ -32,13 +31,6 @@ def _start(*args):
     )
 
 
-def _pump(stream, sink):
-    """Each line of ``stream`` into ``sink``, then "" at its end."""
-    for line in iter(stream.readline, ""):
-        sink.put(line)
-    sink.put("")
-
-
 def test_runtime_entrypoint_serves_both_surfaces_on_the_cpu():
     from rs_face_detection_tpu.runtime.server import FacePipelineClient as JClient
     from rs_face_detection_tpu_torch.runtime.http import TritonHTTPClient
@@ -47,26 +39,10 @@ def test_runtime_entrypoint_serves_both_surfaces_on_the_cpu():
 
     proc = _start("--device", "cpu", "--port", "0", "--http-port", "0")
     try:
-        # The child's lines are read on a thread of their own, so that the
-        # deadline holds while the child prints nothing.
-        pending = queue.Queue()
-        threading.Thread(target=_pump, args=(proc.stdout, pending), daemon=True).start()
-        lines, port, http_port = [], None, None
-        deadline = time.monotonic() + 120
-        while port is None:
-            try:
-                line = pending.get(timeout=max(deadline - time.monotonic(), 0.0))
-            except queue.Empty:
-                raise AssertionError(f"server announced no port within 120 s: {''.join(lines)}") from None
-            lines.append(line)
-            m = re.search(r"KServe-v2 HTTP endpoint on :(\d+)", line)
-            if m:
-                http_port = int(m.group(1))
-            m = re.search(r"serving on :(\d+)", line)
-            if m:
-                port = int(m.group(1))
-            if not line:
-                raise AssertionError(f"server exited early: {''.join(lines)}")
+        lines, m = read_until(proc, r"serving on :(\d+)", 120)
+        port = int(m.group(1))
+        m = re.search(r"KServe-v2 HTTP endpoint on :(\d+)", "".join(lines))
+        http_port = int(m.group(1)) if m else None
         assert port and http_port, f"server never announced its ports: {''.join(lines)}"
         assert "device cpu" in lines[-1]
         for client in (FacePipelineClient(port=port, timeout_s=60), JClient(port=port, timeout_s=60)):

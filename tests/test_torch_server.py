@@ -24,9 +24,6 @@ own ``FacePipelineClient`` talks to both.  Gates (PERF.md section 2):
 """
 
 import os
-import queue
-import threading
-import time
 
 import cv2
 import jax
@@ -54,6 +51,7 @@ from rs_face_detection_tpu_torch.pipeline.ekyc_pipeline import EKYCPipeline
 from rs_face_detection_tpu_torch.pipeline.face_pipeline import FacePipeline
 from rs_face_detection_tpu_torch.runtime.server import extract_reply
 from rs_face_detection_tpu_torch.runtime.server import serve as pserve
+from deadlines import RPC_S, in_threads
 
 torch.set_num_threads(2)
 
@@ -111,33 +109,6 @@ def payloads():
     with np.load(os.path.join(FIXTURES, "ap_eval_set.npz")) as d:
         ap = list(d["images"][:7])
     return [jpeg(img) for img in (scene, *ap)]
-
-
-#: Deadline of every RPC, stream and client thread here: a hung server fails
-#: the test instead of holding it.
-RPC_S = 120.0
-
-
-def bounded(fn, what, timeout_s=RPC_S):
-    """fn() on a daemon thread; its result, or a failure naming ``what`` when
-    it has not returned within ``timeout_s`` (a stream has no deadline of
-    its own)."""
-    out = queue.Queue()
-
-    def run():
-        try:
-            out.put((True, fn()))
-        except BaseException as e:  # noqa: BLE001 - re-raised below
-            out.put((False, e))
-
-    threading.Thread(target=run, daemon=True).start()
-    try:
-        ok, value = out.get(timeout=timeout_s)
-    except queue.Empty:
-        pytest.fail(f"{what} did not finish within {timeout_s} s")
-    if not ok:
-        raise value
-    return value
 
 
 @pytest.fixture(scope="module")
@@ -206,8 +177,9 @@ def test_extract_and_detect_match_jax(servers, payloads):
 
 def test_detect_stream_matches_jax(servers, payloads):
     (_, _, jc, _), (_, _, pc, ppipe) = servers["jax"], servers["port"]
-    got = bounded(lambda: list(pc.detect_stream(payloads)), "the port's DetectStream")
-    want = bounded(lambda: list(jc.detect_stream(payloads)), "JAX's DetectStream")
+    # a stream has no deadline of its own
+    (got,) = in_threads(lambda _: list(pc.detect_stream(payloads)), 1, "the port's DetectStream")
+    (want,) = in_threads(lambda _: list(jc.detect_stream(payloads)), 1, "JAX's DetectStream")
     assert len(got) == len(want) == len(payloads)
     for g, w in zip(got, want):
         assert_detect_close(g, w)
@@ -276,25 +248,7 @@ def test_dynamic_batching_coalesces(payloads, verb):
     try:
         call = getattr(client, verb)
         call(payloads[0])
-        outs = [None] * len(payloads)
-        barrier = threading.Barrier(len(payloads))
-        errors = []
-
-        def one(i):
-            try:
-                barrier.wait(timeout=RPC_S)
-                outs[i] = call(payloads[i])
-            except Exception as e:  # noqa: BLE001 - reported by the assert below
-                errors.append(e)
-
-        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
-        for t in threads:
-            t.start()
-        deadline = time.monotonic() + 2 * RPC_S
-        for t in threads:
-            t.join(timeout=max(deadline - time.monotonic(), 0.0))
-        assert not any(t.is_alive() for t in threads), f"a {verb} client did not finish within {2 * RPC_S} s"
-        assert not errors, f"a {verb} client failed: {errors[0]!r}"
+        outs = in_threads(lambda i: call(payloads[i]), len(payloads), f"{verb} client", 2 * RPC_S)
         if verb == "detect":
             for payload, out in zip(payloads, outs):
                 det, kps = ppipe.face_detection(cv2.imdecode(np.frombuffer(payload, np.uint8), cv2.IMREAD_COLOR))

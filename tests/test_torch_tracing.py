@@ -21,7 +21,6 @@ runs without the conftest:
 import contextlib
 import json
 import os
-import threading
 import warnings
 
 import numpy as np
@@ -34,6 +33,7 @@ from rs_face_detection_tpu_torch.models import weights
 from rs_face_detection_tpu_torch.models.heads import SmallCNN
 from rs_face_detection_tpu_torch.pipeline.face_pipeline import FacePipeline
 from rs_face_detection_tpu_torch.utils import tracing
+from deadlines import RPC_S, in_threads
 
 torch.set_num_threads(2)
 
@@ -42,7 +42,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DET = "face_detection_retina"
 DET_KW = dict(image_size=(64, 64), confidence_threshold=0.3, max_candidates=64, max_detections=16)
 STAGES = ["pipeline.decode", "pipeline.letterbox", "detect", "pipeline.select", "heads", "pipeline.assemble"]
-RPC_S = 120.0
 
 
 def make_pipeline(device):
@@ -259,14 +258,9 @@ def test_threads_lose_no_span_and_no_count(monkeypatch):
     sys.setswitchinterval(1e-6)
     try:
         with profiled():
-            workers = [threading.Thread(target=work) for _ in range(threads)]
-            for t in workers:
-                t.start()
-            for t in workers:
-                t.join(timeout=RPC_S)
+            in_threads(lambda _: work(), threads, "tracing")
     finally:
         sys.setswitchinterval(old)
-    assert not any(t.is_alive() for t in workers)
     snap = tracing.read()
     tops = snap.named("pipeline.extract_batch")
     assert len(tops) == len(snap.named("detect")) == threads * each
@@ -290,23 +284,9 @@ def served():
 
 def test_served_spans_share_request_and_batch_ids(served, payloads):
     served.extract(payloads[0])  # builds the batcher outside the session
-    outs, errors = [None] * len(payloads), []
-    barrier = threading.Barrier(len(payloads))
-
-    def one(i):
-        try:
-            barrier.wait(timeout=RPC_S)
-            outs[i] = served.extract(payloads[i])
-        except Exception as e:  # noqa: BLE001 - reported by the assert below
-            errors.append(e)
-
     with profiled():
-        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(payloads))]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=2 * RPC_S)
-    assert not errors and all(o is not None and "error" not in o for o in outs)
+        outs = in_threads(lambda i: served.extract(payloads[i]), len(payloads), "extract client", 2 * RPC_S)
+    assert all(o is not None and "error" not in o for o in outs)
     snap = tracing.read()
     handlers = snap.named("runtime.extract")
     ids = sorted(s.attrs["request"] for s in handlers)

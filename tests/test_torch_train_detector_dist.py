@@ -21,7 +21,6 @@ Every launch has a deadline of 150 s.
 
 import os
 import re
-import signal
 import subprocess
 import sys
 
@@ -30,6 +29,7 @@ import numpy as np
 import pytest
 
 from rs_face_detection_tpu_torch.tools import train_detector
+from deadlines import communicate_all
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-3
@@ -63,13 +63,8 @@ def _torchrun(flags):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True, start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=150)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise AssertionError("torchrun passed its 150 s deadline") from None
-    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+    ((rc, out, err),) = communicate_all([proc], 150, what="torchrun")
+    return subprocess.CompletedProcess(cmd, rc, out, err)
 
 
 def _losses(text):
