@@ -12,7 +12,7 @@ from typing import Tuple
 
 import torch
 
-from ..utils import tracing
+from ..utils.device import device_constant
 
 
 def _whctr(boxes: torch.Tensor):
@@ -52,12 +52,7 @@ def landmark_pred(anchors: torch.Tensor, deltas: torch.Tensor) -> torch.Tensor:
 def clip_boxes(boxes: torch.Tensor, im_shape: Tuple[int, int]) -> torch.Tensor:
     """Clamp (..., 4) corner boxes to [0, W-1] x [0, H-1]; im_shape is (H, W)."""
     height, width = im_shape
-    bound = torch.tensor(
-        [width - 1.0, height - 1.0, width - 1.0, height - 1.0],
-        dtype=boxes.dtype,
-        device=boxes.device,
-    )
-    tracing.host_sync(boxes.device)
+    bound = device_constant((width - 1.0, height - 1.0, width - 1.0, height - 1.0), boxes.dtype, boxes.device)
     return torch.minimum(torch.clamp(boxes, min=0.0), bound)
 
 

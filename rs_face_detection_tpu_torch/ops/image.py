@@ -13,7 +13,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..utils import tracing
+from ..utils.device import device_arrays, device_constant, to_device
 
 
 def letterbox_geometry(
@@ -106,10 +106,8 @@ def resize_u8_linear(img_u8: torch.Tensor, out_h: int, out_w: int) -> torch.Tens
     src_h, src_w = img_u8.shape[0], img_u8.shape[1]
     if (src_h, src_w) == (out_h, out_w):
         return img_u8
-    dev = img_u8.device
-    x0, x1, a0, a1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(src_w, out_w, True))
-    y0, y1, b0, b1 = (torch.from_numpy(t).to(dev) for t in _linear_taps(src_h, out_h, False))
-    tracing.host_sync(dev, 8)
+    x0, x1, a0, a1 = device_arrays(_linear_taps, (src_w, out_w, True), img_u8.device)
+    y0, y1, b0, b1 = device_arrays(_linear_taps, (src_h, out_h, False), img_u8.device)
 
     def horizontal(rows: torch.Tensor) -> torch.Tensor:  # (out_h, W, C) -> (out_h, out_w, C)
         src = rows.to(torch.int32)
@@ -192,8 +190,8 @@ def s2d_stem_input(imgs_bgr_u8: torch.Tensor, mean, scale) -> torch.Tensor:
     frame's BGR channel order, the order of the folded stem constants.
     """
     x = s2d_layout(imgs_bgr_u8)[..., list(S2D_FLIP)]
-    mean12 = torch.tensor(mean, dtype=torch.float32, device=x.device).tile(4)
-    scale12 = torch.tensor(scale, dtype=torch.float32, device=x.device).tile(4)
+    mean12 = device_constant(tuple(mean) * 4, torch.float32, x.device)
+    scale12 = device_constant(tuple(scale) * 4, torch.float32, x.device)
     return (x.float() - mean12) * scale12
 
 
@@ -206,10 +204,7 @@ def normalize(
     img: torch.Tensor, mean: Sequence[float], scale: Sequence[float]
 ) -> torch.Tensor:
     """Per-channel (px - mean) * scale on an (..., 3) float image."""
-    mean_t = torch.tensor(mean, dtype=img.dtype, device=img.device)
-    scale_t = torch.tensor(scale, dtype=img.dtype, device=img.device)
-    tracing.host_sync(img.device, 2)
-    return (img - mean_t) * scale_t
+    return (img - device_constant(mean, img.dtype, img.device)) * device_constant(scale, img.dtype, img.device)
 
 
 def crops_to_nchw(
@@ -219,7 +214,7 @@ def crops_to_nchw(
     ``size`` (w, h) -> BGR->RGB -> (px - mean) * scale, as a float32 NCHW
     batch on ``device`` (the JAX modules' order of the three steps)."""
     out_w, out_h = size
-    x = torch.from_numpy(np.stack(imgs_bgr)).to(device).float()
+    x = to_device(np.stack(imgs_bgr), device).float()
     x = normalize(bgr_to_rgb(resize_bilinear(x, out_h, out_w)), mean, scale)
     return x.permute(0, 3, 1, 2).contiguous()
 

@@ -17,7 +17,7 @@ from ..configs import FaceAlignmentConfig
 
 from ..ops.image import crop_resize, warp_affine
 from ..ops.umeyama import umeyama_similarity_np
-from ..utils import tracing
+from ..utils.device import to_device
 
 
 class FaceAlignment:
@@ -76,9 +76,6 @@ class FaceAlignment:
         img = image_bgr.float()
         matrix = self.estimate(landmarks) if landmarks is not None else None
         if matrix is not None:
-            m = torch.from_numpy(matrix).to(img.device)
-            tracing.host_sync(img.device)
-            return warp_affine(img[None], m[None], out_h, out_w)[0]
-        box = torch.from_numpy(self._crop_box(img.shape, bbox)).to(img.device)
-        tracing.host_sync(img.device)
+            return warp_affine(img[None], to_device(matrix, img.device)[None], out_h, out_w)[0]
+        box = to_device(self._crop_box(img.shape, bbox), img.device)
         return crop_resize(img, box, out_h, out_w)

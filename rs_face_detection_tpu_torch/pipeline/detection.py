@@ -30,7 +30,6 @@ the module's own stem.
 
 from __future__ import annotations
 
-import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -45,8 +44,7 @@ from ..ops.box_decode import bbox_pred, clip_boxes, landmark_pred
 from ..ops.image import bgr_to_rgb, letterbox, normalize
 from ..ops.nms import nms_mask
 from ..ops.stem import fold_stem_params, fused_stem
-from ..utils import tracing
-from ..utils.device import DeviceLike, resolve_device, to_device
+from ..utils.device import DeviceLike, device_constant, resolve_device, timed_fetch, to_device
 
 
 class PaddedDetections(NamedTuple):
@@ -69,13 +67,11 @@ class Candidates(NamedTuple):
 def stable_topk(scores: torch.Tensor, cfg: FaceDetectionConfig):
     """Confidence filter, then the top max_candidates of (B, K) scores in a
     stable order: (top scores, -inf where invalid; their indices; valid)."""
-    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device)
-    tracing.host_sync(scores.device)
-    masked = torch.where(scores >= cfg.confidence_threshold, scores, neg_inf)
+    masked = torch.where(scores >= cfg.confidence_threshold, scores, float("-inf"))
     k = min(cfg.max_candidates, scores.shape[1])
     sorted_scores, order = torch.sort(masked, dim=1, descending=True, stable=True)
     top_scores, top_idx = sorted_scores[:, :k], order[:, :k]
-    return top_scores, top_idx, top_scores > neg_inf
+    return top_scores, top_idx, top_scores > float("-inf")
 
 
 def select_candidates(
@@ -100,8 +96,7 @@ def select_candidates(
     top_scores, top_idx, valid = stable_topk(scores, cfg)
     k = top_idx.shape[1]
 
-    bbox_stds = torch.tensor(cfg.bbox_stds, dtype=torch.float32, device=scores.device)
-    tracing.host_sync(scores.device)
+    bbox_stds = device_constant(cfg.bbox_stds, torch.float32, scores.device)
     anchor_sel = anchors[top_idx]  # (B, k, 4)
     deltas = torch.gather(bbox_raw, 1, top_idx[..., None].expand(-1, -1, 4)) * bbox_stds
     boxes = clip_boxes(bbox_pred(anchor_sel, deltas), (height, width))
@@ -150,11 +145,11 @@ def select_and_nms(
     return nms_and_compact(topk_candidates(scores, boxes, lms, cfg), cfg)
 
 
-def descale(padded: PaddedDetections, inv_scale: torch.Tensor) -> PaddedDetections:
-    """Multiply boxes and landmarks by (B,) inverse letterbox scales."""
-    inv = inv_scale.reshape(-1, 1, 1)
+def descale(padded: PaddedDetections, inv_scale) -> PaddedDetections:
+    """Multiply boxes and landmarks by (B,) inverse letterbox scales, or one float."""
+    inv = inv_scale.reshape(-1, 1, 1) if isinstance(inv_scale, torch.Tensor) else inv_scale
     det = torch.cat([padded.det[..., :4] * inv, padded.det[..., 4:]], dim=-1)
-    return PaddedDetections(det, padded.kps * inv[..., None], padded.count)
+    return PaddedDetections(det, (padded.kps.flatten(-2) * inv).unflatten(-1, (5, 2)), padded.count)
 
 
 def fold_model_stem(model: nn.Module, cfg: FaceDetectionConfig):
@@ -186,17 +181,10 @@ class RetinaFaceDetection:
         model: Optional[nn.Module] = None,
         device: DeviceLike = "cuda",
         registry: Optional[ModelRegistry] = None,
-        stem: str = "auto",
     ) -> None:
         """``model``: a RetinaFace; else the registry's ``cfg.model_name``
         (``registry``, or the default one: models/registry.py::registry_on),
-        whose statistics then count this detector's calls.  ``stem``: the
-        batched path's stem, ``"auto"`` (the fused stem for a float s2d
-        model, else the module's own) or ``"fused"`` (the fused stem, or
-        ValueError: an int8-activation model never takes it, as JAX refuses
-        ``stem="pallas"`` for quant models)."""
-        if stem not in ("auto", "fused"):
-            raise ValueError(f"stem must be 'auto' or 'fused', got {stem!r}")
+        whose statistics then count this detector's calls."""
         self.cfg = cfg or FaceDetectionConfig()
         self.device = resolve_device(device)
         model, self._registry = from_registry(model, registry, self.cfg.model_name, self.device, detection=self.cfg)
@@ -215,11 +203,9 @@ class RetinaFaceDetection:
         # card); its constants are folded once, from the weights the detector
         # holds.  It takes even frame sizes only, and raises on odd ones as
         # JAX's stem="pallas" does; the single-image path takes any size.  A
-        # quantized model runs its own int8 stem: K2 holds float weights.
-        fused_ok = self.model.uses_s2d_stem() and not getattr(self.model, "quant", False)
-        if stem == "fused" and not fused_ok:
-            raise ValueError("stem='fused' needs a float model with the s2d stem (the ResNet-50), not an int8 one")
-        self.stem_consts = fold_model_stem(self.model, self.cfg) if fused_ok else None
+        # quantized model runs its own int8 stem, as in JAX: K2 holds float weights.
+        fused = self.model.uses_s2d_stem() and not getattr(self.model, "quant", False)
+        self.stem_consts = fold_model_stem(self.model, self.cfg) if fused else None
 
     def forward(self, images: torch.Tensor) -> Dict[int, Dict[str, torch.Tensor]]:
         """The network on (B, H, W, 3) float BGR pixels in [0, 255]."""
@@ -269,26 +255,14 @@ class RetinaFaceDetection:
         with torch.no_grad():
             net_out = self.forward(padded_img[None])
             cand = select_candidates(net_out, self.anchors, self.level_info, self.cfg)
-            padded = nms_and_compact(cand, self.cfg)
-        inv = torch.tensor([1.0 / det_scale], dtype=torch.float32, device=self.device)
-        tracing.host_sync(self.device)
-        out = descale(padded, inv)
+            out = descale(nms_and_compact(cand, self.cfg), 1.0 / det_scale)
         return PaddedDetections(out.det[0], out.kps[0], out.count[0])
 
     def __call__(self, image_bgr_u8) -> Tuple[np.ndarray, np.ndarray]:
-        """Under a ``detect`` span (utils/tracing.py) whose clock reads the
-        registry's statistics share, with CUDA events from the first launch
-        to just before the host copies."""
-        start = time.perf_counter_ns()
-        with tracing.span("detect", start, self.device) as sp:
-            out = self.detect_padded(image_bgr_u8)
-            sp.device_end()
-            n = int(out.count)
-            det, kps = out.det[:n].cpu().numpy(), out.kps[:n].cpu().numpy()
-            tracing.host_sync(self.device, 3)
-            end = sp.end(time.perf_counter_ns())
-        self.record_traffic(1, (end - start) * 1e-9)
-        return det, kps
+        """Under a ``detect`` span (utils/device.py::timed_fetch) whose seconds the registry counts."""
+        (det, kps, count), seconds = timed_fetch("detect", self.device, lambda: self.detect_padded(image_bgr_u8))
+        self.record_traffic(1, seconds)
+        return det[:count], kps[:count]
 
     def record_traffic(self, n_images: int, duration_s: float) -> None:
         """Count traffic served outside ``__call__`` (``detect_batch`` from a

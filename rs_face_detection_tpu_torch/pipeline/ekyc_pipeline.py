@@ -49,7 +49,7 @@ from ..models.registry import ModelRegistry, from_registry, registry_on
 from ..ops.anchors import scrfd_anchor_centers
 from ..ops.box_decode import clip_boxes, distance2bbox, distance2kps
 from ..ops.image import bgr_to_rgb, letterbox, normalize, resize_bilinear, resize_u8_linear
-from ..utils.device import DeviceLike, resolve_device, to_device
+from ..utils.device import DeviceLike, fetch, resolve_device, timed_fetch, to_device
 from ..utils.image_io import decode_image_bytes
 from .alignment import FaceAlignment
 from .detection import PaddedDetections, descale, select_and_nms
@@ -140,17 +140,13 @@ class SCRFDDetection:
         padded_img, det_scale = letterbox(img, width, height)
         with torch.no_grad():
             padded = select_and_nms(*self.decode(self.forward(padded_img[None])), self.sel_cfg)
-        inv = torch.tensor([1.0 / det_scale], dtype=torch.float32, device=self.device)
-        out = descale(padded, inv)
+        out = descale(padded, 1.0 / det_scale)
         return PaddedDetections(out.det[0], out.kps[0], out.count[0])
 
     def __call__(self, image_bgr_u8) -> Tuple[np.ndarray, np.ndarray]:
-        start = time.perf_counter()
-        out = self.detect_padded(image_bgr_u8)
-        n = int(out.count)
-        det, kps = out.det[:n].cpu().numpy(), out.kps[:n].cpu().numpy()
-        self.record_traffic(1, time.perf_counter() - start)
-        return det, kps
+        (det, kps, count), seconds = timed_fetch("detect", self.device, lambda: self.detect_padded(image_bgr_u8))
+        self.record_traffic(1, seconds)
+        return det[:count], kps[:count]
 
     def record_traffic(self, n_images: int, duration_s: float) -> None:
         """Count traffic served outside ``__call__`` in the registry's
@@ -266,8 +262,7 @@ class EKYCPipeline:
         result = EKYCResult()
         images = [to_device(card_bgr, self.device), to_device(selfie_bgr, self.device)]
         start = time.perf_counter()
-        best = torch.stack([largest_face(self.detection.detect_padded(img)) for img in images])
-        best = best.cpu().numpy()  # host sync 1: boxes and landmarks
+        (best,) = fetch(torch.stack([largest_face(self.detection.detect_padded(img)) for img in images]))
         # Two detect calls of one image each; one clock spans both.
         half = (time.perf_counter() - start) / 2
         self.detection.record_traffic(1, half)
@@ -289,18 +284,17 @@ class EKYCPipeline:
         full = self.fas_full_cfg.imsize
         selfie_full = resize_u8_linear(images[1], full, full)
         selfie_face = aligned[1:]
-        outs = torch.cat([
-            (emb[0] @ emb[1]).reshape(1),
+        sim, attr, quality, fas_crop, fas_full = fetch(
+            (emb[0] @ emb[1]).float(),
             self.run_head("attribute", selfie_face)[0],
             self.run_head("quality", selfie_face)[0],
             self.run_head("fas_crop", selfie_face)[0],
             self.run_head("fas_full", selfie_full[None])[0],
-        ]).cpu().numpy()  # host sync 2: the results
+        )
 
-        result.similarity = float(outs[0])
+        result.similarity = float(sim)
         result.same_person = result.similarity >= self.id_cfg.threshold_same_person
         result.same_ekyc = result.similarity >= self.id_cfg.threshold_same_ekyc
-        attr, quality, fas_crop, fas_full = outs[1:3], outs[3:5], outs[5:7], outs[7:9]
         result.selfie_mask = bool(attr[1] > self.attr_cfg.threshold_face_mask)
         # Column 0 = P(not covered), column 1 = P(covered): selfie_quality
         # reports P(uncovered), threshold_cover gates the boolean.

@@ -19,7 +19,6 @@ detect call, each head per tail call.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import List, Mapping, Optional, Tuple
 
@@ -32,7 +31,7 @@ from ..configs import FacePipelineConfig, FaceQualityClass
 from ..models.registry import ModelRegistry, registry_on
 from ..ops.image import bgr_to_rgb, letterbox_u8_batch, normalize, resize_bilinear, warp_affine
 from ..utils import tracing
-from ..utils.device import DeviceLike, resolve_device, to_device
+from ..utils.device import DeviceLike, resolve_device, timed_fetch, to_device
 from ..utils.image_io import decode_image_bytes, decode_images, decode_workers
 from .alignment import FaceAlignment
 from .detection import RetinaFaceDetection
@@ -153,17 +152,12 @@ class FacePipeline:
             top.set("faces", 0)
             return result
         top.set("faces", 1)
-        start = time.perf_counter_ns()
-        with tracing.span("heads", start, self.device) as sp:
-            face = self.face_alignment(img, box, points)
-            probs, emb = self.heads(face[None])
-            sp.device_end()
-            probs, emb = probs[0].cpu().numpy(), emb[0].cpu().numpy()
-            tracing.host_sync(self.device, 2)
-            end = sp.end(time.perf_counter_ns())
-        self._record_heads(1, (end - start) * 1e-9)
+        (probs, emb), seconds = timed_fetch(
+            "heads", self.device, lambda: self.heads(self.face_alignment(img, box, points)[None])
+        )
+        self._record_heads(1, seconds)
         with tracing.span("pipeline.assemble"):
-            self._fill(result, probs, emb)
+            self._fill(result, probs[0], emb[0])
             result.selected_face_box = box
         return result
 
@@ -198,14 +192,10 @@ class FacePipeline:
             canvases, det_scales = letterbox_u8_batch(images, width, height, self.device)
             scales = np.asarray(det_scales, np.float32)
 
-        start = time.perf_counter_ns()
-        with tracing.span("detect", start, self.device) as sp:
-            out = self.face_detection.detect_batch(canvases, torch.from_numpy(scales))
-            sp.device_end()
-            counts, all_det, all_kps = (t.cpu().numpy() for t in (out.count, out.det, out.kps))
-            tracing.host_sync(self.device, 3)
-            end = sp.end(time.perf_counter_ns())
-        self._record(self.config.detection.model_name, n, (end - start) * 1e-9)
+        (all_det, all_kps, counts), seconds = timed_fetch(
+            "detect", self.device, lambda: self.face_detection.detect_batch(canvases, scales)
+        )
+        self._record(self.config.detection.model_name, n, seconds)
 
         with tracing.span("pipeline.select"):
             results = [FaceExtractionResult(face_count=int(c)) for c in counts]
@@ -231,30 +221,25 @@ class FacePipeline:
                 selected.append(i)
                 matrices.append(m)
             if selected:
-                idx = torch.tensor(selected, device=self.device)
-                mats = torch.from_numpy(np.stack(matrices)).to(self.device)
-                tracing.host_sync(self.device, 2)
+                idx = to_device(np.asarray(selected, np.int64), self.device)
+                mats = to_device(np.stack(matrices), self.device)
             crops = [self.face_alignment(to_device(images[i], self.device), box, points)[None]
                      for i, box, points in staged]
         owners = selected + [i for i, _, _ in staged]
         top.set("faces", len(owners))
         if not owners:
             return results
-        start = time.perf_counter_ns()
-        with tracing.span("heads", start, self.device) as sp:
-            faces = crops
-            if selected:
-                out_w, out_h = self.config.alignment.image_size
-                faces = [warp_affine(canvases[idx].float(), mats, out_h, out_w)] + crops
-            probs, embs = self.heads(torch.cat(faces))
-            sp.device_end()
-            probs, embs = probs.cpu().numpy(), embs.cpu().numpy()
-            tracing.host_sync(self.device, 2)
-            end = sp.end(time.perf_counter_ns())
+        out_w, out_h = self.config.alignment.image_size
+
+        def tail():  # the warp and both heads
+            warped = [warp_affine(canvases[idx].float(), mats, out_h, out_w)] if selected else []
+            return self.heads(torch.cat(warped + crops))
+
+        (probs, embs), seconds = timed_fetch("heads", self.device, tail)
         # One fused call; the statistics count the two calls the JAX
         # pipeline makes (the warped faces, then the crop-fallback faces),
         # the clock split between them by their face counts.
-        per_face = (end - start) * 1e-9 / len(owners)
+        per_face = seconds / len(owners)
         for k in (len(selected), len(staged)):
             if k:
                 self._record_heads(k, k * per_face)

@@ -66,7 +66,7 @@ import torch
 
 from ..ops.image import letterbox_u8_batch
 from ..pipeline.detection import PaddedDetections, RetinaFaceDetection
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, fetch, resolve_device, to_device
 from ..utils.image_io import decode_image_bytes
 
 Result = Tuple[np.ndarray, np.ndarray]
@@ -261,7 +261,7 @@ class DetectionServer:
                 scales = native[1][lo:hi]
             else:
                 canvases, scales = letterbox_u8_batch(images[lo:hi], width, height, dev)
-            scales_dev = torch.tensor(scales, dtype=torch.float32, device=dev)
+            scales_dev = to_device(np.asarray(scales, np.float32), dev)
             ready = None
             if stream is not None:
                 ready = torch.cuda.Event()
@@ -298,7 +298,7 @@ class DetectionServer:
         results: List[Result] = []
         for rep, out, n in outs:
             with self._on(rep):
-                det, kps, counts = (t.cpu().numpy() for t in (out.det, out.kps, out.count))
+                det, kps, counts = fetch(*out)
             results += [(det[i, : counts[i]], kps[i, : counts[i]]) for i in range(n)]
         return results
 

@@ -1,8 +1,15 @@
-"""Device resolution and host-to-device conversion."""
+"""Device resolution and the host/device boundary of the face-ID path.
+
+Every call of the path that blocks the host on a CUDA stream is made here
+and counted here (``tracing.host_sync``): a pageable upload (``to_device``),
+a stage's results (``fetch``) and a constant's one upload (``device_arrays``).
+"""
 
 from __future__ import annotations
 
-from typing import Union
+import functools
+import time
+from typing import Callable, Tuple, Union
 
 import numpy as np
 import torch
@@ -10,6 +17,10 @@ import torch
 from . import tracing
 
 DeviceLike = Union[str, torch.device]
+
+#: Uploads ``device_arrays`` keeps (least recently used go first): a few
+#: constants per config, one set of resize taps per pair of frame sizes.
+CONSTANTS = 256
 
 
 def resolve_device(device: DeviceLike) -> torch.device:
@@ -37,3 +48,51 @@ def to_device(x, device: torch.device) -> torch.Tensor:
     if x.device.type == "cpu":
         tracing.host_sync(device)
     return x.to(device)
+
+
+@functools.lru_cache(maxsize=CONSTANTS)
+def _uploaded(make: Callable, args: tuple, device: torch.device, stream) -> Tuple[torch.Tensor, ...]:
+    return tuple(to_device(a, device) for a in make(*args))
+
+
+def device_arrays(make: Callable, args: tuple, device: torch.device) -> Tuple[torch.Tensor, ...]:
+    """``make(*args)``'s arrays on `device`, made and uploaded once per (make,
+    args, device, current stream) for callers that only read them: a stream's
+    copy is used, and freed when evicted, on that stream alone.  Nothing is
+    cached while torch.export or torch.compile traces: a traced tensor is fake."""
+    if torch.compiler.is_compiling():
+        return tuple(torch.as_tensor(a, device=device) for a in make(*args))
+    return _uploaded(make, args, device, torch.cuda.current_stream(device) if device.type == "cuda" else None)
+
+
+def _values(values: tuple, dtype: torch.dtype) -> Tuple[torch.Tensor]:
+    return (torch.tensor(values, dtype=dtype),)
+
+
+def device_constant(values, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """A sequence of numbers as a `dtype` tensor on `device`, uploaded once."""
+    return device_arrays(_values, (tuple(values), dtype), device)[0]
+
+
+def fetch(*tensors: torch.Tensor) -> Tuple[np.ndarray, ...]:
+    """Tensors of one device as numpy arrays, exact for every numpy dtype: their
+    bytes joined on the device, one blocking copy on the current stream, one
+    ``host_sync``."""
+    flat = [t.detach().contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    host = torch.cat(flat).cpu()
+    tracing.host_sync(tensors[0].device)
+    parts = host.split([f.numel() for f in flat])
+    return tuple(p.clone().view(t.dtype).reshape(t.shape).numpy() for p, t in zip(parts, tensors))
+
+
+def timed_fetch(name: str, device: torch.device, fn: Callable) -> Tuple[Tuple[np.ndarray, ...], float]:
+    """A device stage: ``fn()`` and a ``fetch`` of the tensors it returns, in
+    a span ``name`` with CUDA events from the first launch to just before
+    the copy; returns the arrays and the seconds between the span's clock reads."""
+    start = time.perf_counter_ns()
+    with tracing.span(name, start, device) as sp:
+        out = fn()
+        sp.device_end()
+        arrays = fetch(*out)
+        end = sp.end(time.perf_counter_ns())
+    return arrays, (end - start) * 1e-9

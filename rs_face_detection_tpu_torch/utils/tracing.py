@@ -25,9 +25,9 @@ On, a span:
 ``count`` adds to a counter of the innermost open span of the thread; a
 span hands its counts to its parent when it ends, so
 ``pipeline.extract_batch`` holds its batch's.  ``host_sync`` counts one
-call that blocks the host on the stream (a device-to-host copy, a pageable
-host-to-device copy, an ``item``) as ``host_syncs``, only for a CUDA
-device: on the CPU nothing waits on a stream.  ``decode_pooled`` counts the
+call that blocks the host on the stream (utils/device.py makes each: a
+pageable upload, a fetch of a stage's results) as ``host_syncs``, only for a
+CUDA device: on the CPU nothing waits on a stream.  ``decode_pooled`` counts the
 images ``utils/image_io.py::decode_images`` decoded on its pool of threads.
 
 The store holds the newest session: it opens at the first span or record

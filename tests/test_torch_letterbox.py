@@ -81,6 +81,25 @@ def test_letterbox_u8_batch_equals_letterbox_host():
         np.testing.assert_array_equal(got[i].numpy(), want, err_msg=f"{img.shape}")
 
 
+def test_repeated_sizes_reuse_their_taps_and_stay_equal_to_cv2():
+    """The taps of each pair of sizes are uploaded once and reused: new
+    frames of a size seen before, between frames of other sizes, still
+    resize as cv2 does, and the cached taps are the ones made first."""
+    from rs_face_detection_tpu_torch.ops.image import _linear_taps
+    from rs_face_detection_tpu_torch.utils.device import device_arrays
+
+    cpu = torch.device("cpu")
+    first = device_arrays(_linear_taps, (1280, 640, True), cpu)
+    for i, (src, dst) in enumerate([((720, 1280), (360, 640)), ((480, 640), (480, 640)), ((37, 99), (64, 21))] * 3):
+        img = _image(*src, 50 + i)
+        want = cv2.resize(img, (dst[1], dst[0]), interpolation=cv2.INTER_LINEAR)
+        np.testing.assert_array_equal(resize_u8_linear(torch.from_numpy(img), *dst).numpy(), want.reshape(*dst, 3))
+    again = device_arrays(_linear_taps, (1280, 640, True), cpu)
+    assert all(a is b for a, b in zip(first, again))
+    for cached, fresh in zip(again, _linear_taps(1280, 640, True)):
+        np.testing.assert_array_equal(cached.numpy(), fresh)
+
+
 def test_identity_size_is_a_copy():
     img = torch.from_numpy(_image(64, 64, 3))
     canvas, scale = letterbox_u8(img, 64, 64)

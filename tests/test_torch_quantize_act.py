@@ -368,8 +368,7 @@ def test_quantized_detector_pipeline_runs(r50_q, monkeypatch):
     """tests/test_quantize.py's pipeline test (R50 at 0.3, 32 candidates, 8
     rows, on uint8 frames): the port's int8 detector gives finite padded
     rows of the same shapes as JAX's ``make_batched_fn(pre_s2d=True)``
-    without ever calling the fused stem (patched to raise here), and
-    refuses ``stem="fused"``."""
+    without ever calling the fused stem (patched to raise here)."""
     from rs_face_detection_tpu.configs import FaceDetectionConfig as JConfig
     from rs_face_detection_tpu.ops.image import s2d_layout_host
     from rs_face_detection_tpu.pipeline.detection import RetinaFaceDetection as JDetection
@@ -393,9 +392,6 @@ def test_quantized_detector_pipeline_runs(r50_q, monkeypatch):
     jdet = JDetection(JConfig(**fields), model=quantized["qmodel"], variables=quantized["qvars"])
     ref = jdet.make_batched_fn(pre_s2d=True)(jdet.variables, jnp.asarray(s2d_layout_host(imgs)), jnp.ones(2))
     assert tuple(ref.det.shape) == tuple(out.det.shape) and tuple(ref.kps.shape) == tuple(out.kps.shape)
-    with pytest.raises(ValueError, match="stem='fused'"):
-        detection.RetinaFaceDetection(FaceDetectionConfig(**fields), quantized["port_on_jax_tree"], device="cpu",
-                                      stem="fused")
     float_det = detection.RetinaFaceDetection(FaceDetectionConfig(**fields), quantized["port_float"], device="cpu")
     with pytest.raises(AssertionError, match="fused stem"):
         float_det.detect_batch(imgs, np.ones(2, np.float32))

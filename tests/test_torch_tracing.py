@@ -13,7 +13,7 @@ one session at a time and at most ``LIMIT`` spans.
 Marked ``gpu``, on the card: the detector's and the heads' CUDA-event times
 are above 0 and within their host spans, and ``host_syncs`` over one
 ``extract_batch`` equals the syncs ``torch.cuda.set_sync_debug_mode``
-reports over the same call.  This file imports no JAX, so on the card it
+reports over the same call, and is 5 for a batch whose faces all align.  This file imports no JAX, so on the card it
 runs without the conftest:
 ``python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_tracing.py``.
 """
@@ -360,3 +360,18 @@ def test_host_syncs_equal_what_sync_debug_mode_reports(card, payloads):
     (top,) = tracing.read().named("pipeline.extract_batch")
     assert any(r.facial_feature is not None for r in results)
     assert top.counts.get("host_syncs", 0) == synced > 0
+
+
+@pytest.mark.gpu
+def test_a_batch_whose_faces_all_align_makes_five_host_syncs(card, payloads):
+    """The scales', the face indices' and the warp matrices' uploads, one
+    fetch of the detections and one of the heads' results: every device
+    constant was made by the warm-up call."""
+    pipeline, _ = make_pipeline(card)
+    pipeline.extract_batch(payloads)
+    torch.cuda.synchronize()
+    with profiled(cuda=True):
+        results = pipeline.extract_batch(payloads)
+    (top,) = tracing.read().named("pipeline.extract_batch")
+    assert top.attrs["faces"] == sum(r.facial_feature is not None for r in results) > 0
+    assert top.counts.get("host_syncs", 0) == 5
